@@ -1,0 +1,435 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (chromegcn_tpu_torch).
+
+Run from the repository root on a machine with one CUDA card (built for an
+H100, sm_90a):
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``chromegcn_tpu_torch/csrc`` and
+drives the port only (no JAX), one line per phase:
+
+1. the card (nvidia-smi name and power limit) and torch/CUDA versions;
+2. the kernel build, with nvcc's register/spill report;
+3. kernel B1 (bsr_spmm) against its plain PyTorch version on the card:
+   the chr1-scale bench graph's forward and transposed tilings at d 128 and
+   256, f32 and bf16 tiles, tile 256 with an integer threshold, an
+   all-strips tiling, and small graphs against a dense float64 product;
+4. the SpmmBSR gradient against the plain version's autograd;
+5. the main path at bench.py's full width (N_PAD 50,176, d 128, 919
+   classes, 2 layers, 2 strands, SGD lr 0.25): one kernel-path train step
+   against one step of the plain COO path from the same weights, then
+   5 train steps with dropout 0.2 and one eval step, counting kernel
+   launches (8 per train step, 4 per eval step);
+6. timings after warm-up, each the median (min-max) of 5 loops: B1 per
+   launch, its plain version and torch.sparse.mm on the same adjacency in
+   CSR (a yardstick the port never calls), with CUDA events, timed in turns;
+   the bound; the train and eval step on the host clock;
+7. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+   ``{"ok": true, "device": {...}}``.
+
+Any failed phase ends the run with a non-zero exit code.
+
+``python3 chip_smoke.py --profile`` adds to phase 6 a torch.profiler trace
+of 3 train steps: device time per step by kernel, and the device's idle
+share of the step.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# bench.py's main path
+N_VALID, N_PAD, N_PAIRS = 50_000, 50_176, 250_000
+D, NCLASS, LAYERS, LR = 128, 919, 2, 0.25
+TRAIN_STEPS = 5
+# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FLOP/s by type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# kernel vs plain version: f32 sums of the same products in another order
+ATOL, RTOL = 1e-5, 1e-5
+# profile groups, by words in the kernel's name (first match wins)
+PROFILE_GROUPS = (
+    ("B1 bsr_spmm", ("bsr_spmm",)),
+    ("GEMM", ("gemm",)),
+    ("gather/scatter", ("index", "scatter", "gather")),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def require(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+def nvidia_smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()
+    return out[0]
+
+
+def cuda_ms(fns, iters=20, repeats=5, warmup=3):
+    """{name: sorted ms per call} for each function of ``fns``, CUDA events
+    around ``iters`` calls, the functions timed in turns ``repeats`` times."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / iters)
+    return {name: sorted(t) for name, t in times.items()}
+
+
+def spread(times):
+    """'median (min-max)' of a sorted list of ms."""
+    return f"{statistics.median(times):.4f} ({times[0]:.4f}-{times[-1]:.4f})"
+
+
+def host_ms(fn, iters=5, repeats=5, warmup=2):
+    """Sorted host-clock ms per call over ``repeats`` synchronized loops."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / iters)
+    return sorted(times)
+
+
+def poison_allocator(shape):
+    """Leave NaNs in the block the caching allocator hands out next, so rows a
+    kernel fails to write show up as a mismatch."""
+    t = torch.full(shape, float("nan"), device="cuda")
+    del t
+
+
+def compare(name, got, ref):
+    err = (got - ref).abs().max().item()
+    tol = ATOL + RTOL * ref.abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(got, ref, rtol=RTOL, atol=ATOL)
+    log(f"  {name}: max_abs_err {err:.3e} (allclose rtol {RTOL} atol {ATOL}; "
+        f"max tol {tol:.3e}) {'ok' if ok else 'MISMATCH'}")
+    require(ok, f"{name} disagrees with its reference")
+    return err
+
+
+def bound(m, d):
+    """Least time (ms) for one out = A @ x over the live blocks of ``m``: the
+    larger of the bytes (every block, index and x row read once, out written
+    once) over HBM bandwidth, and the operations the data needs (one
+    multiply-add per nonzero of the live blocks and column of x) over the
+    peak rate of the tiles' type. Returns (ms, 'bytes' or 'operations',
+    bytes, operations)."""
+    elems = m.nt * m.tile_r * m.tile_c + m.ns * 8 * m.tile_c
+    index_bytes = 4 * (m.nt + 3 * m.ns + 2 * (m.n_rows // m.tile_r + 1))
+    nbytes = elems * m.tiles.element_size() + 4 * d * (m.n_rows + m.n_cols) + index_bytes
+    nnz = int(torch.count_nonzero(m.tiles[:m.nt])) + int(torch.count_nonzero(m.strips[:m.ns]))
+    flops = 2 * nnz * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[m.tiles.dtype] * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, nbytes, flops
+
+
+def profile_steps(step, t_step_ms, steps=3):
+    """Device time per step by kernel over ``steps`` calls of ``step``, and
+    the device's idle share of ``t_step_ms`` (a step timed without the
+    profiler)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / steps / 1e3, evt.key, evt.count // steps))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        log("  profile: the profiler reported no device time")
+        return
+    log(f"  profile of {steps} train steps: device busy {busy:.4f} ms per step of "
+        f"{t_step_ms:.4f} ms; idle share {max(0.0, 1 - busy / t_step_ms):.3f}")
+    groups = {}
+    for ms, key, count in rows:
+        name = key.lower()
+        group = next((g for g, words in PROFILE_GROUPS if any(w in name for w in words)),
+                     "other")
+        t, n = groups.get(group, (0.0, 0))
+        groups[group] = (t + ms, n + count)
+    for group, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"    {group}: {ms:.4f} ms/step ({100 * ms / busy:.1f}%), {count} launches/step")
+    for ms, key, count in rows[:12]:
+        log(f"    {ms:9.4f} ms/step {100 * ms / busy:5.1f}%  x{count:<4} {key[:90]}")
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also trace 3 train steps with torch.profiler")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; it needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "chromegcn_tpu_torch")):
+        print(f"chip_smoke: no chromegcn_tpu_torch package beside {__file__}; "
+              "run it from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, here)
+    from chromegcn_tpu_torch.data.synthetic import make_hic_edges
+    from chromegcn_tpu_torch.models.chrome import make_chrome_model
+    from chromegcn_tpu_torch.ops import _build
+    from chromegcn_tpu_torch.ops.sparse import build_chrom_graph, from_dense, to_dense
+    from chromegcn_tpu_torch.ops.spmm_bsr import (
+        attach_bsr, bsr_from_graph, bsr_matmul, bsr_matmul_plain, spmm_bsr,
+        streamed_elements,
+    )
+    from chromegcn_tpu_torch.train.finetune import (
+        chrome_eval_step, chrome_train_step, create_chrome_state,
+    )
+
+    t_start = time.perf_counter()
+    cuda = torch.device("cuda")
+    # f32-faithful: no TF32 in matmuls or cuDNN (the reference runs HIGHEST)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---- 1. the card ----
+    smi = nvidia_smi_line()
+    log(f"[1 card] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    # ---- 2. build ----
+    t0 = time.perf_counter()
+    build_log = _build.build("bsr_spmm")
+    log(f"[2 build] bsr_spmm {'built' if build_log is not None else 'already built'} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    for line in (build_log or "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  bsr_spmm: {line.strip()}")
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda, generator=gen)
+
+    # ---- 3. B1 against its plain version ----
+    t0 = time.perf_counter()
+    s, r, v = make_hic_edges(N_VALID, N_PAIRS, seed=0)
+    graph = build_chrom_graph("hic", n_valid=N_VALID, n_pad=N_PAD, hic_edges=(s, r, v),
+                              device=cuda)
+    ops = {
+        "f32": bsr_from_graph(graph, device=cuda),
+        "bf16": bsr_from_graph(graph, dtype="bfloat16", device=cuda),
+        "tile256_min8": bsr_from_graph(graph, tile=256, min_edges_per_tile=8, device=cuda),
+        "all_strips": bsr_from_graph(graph, min_edges_per_tile=10**9, device=cuda),
+    }
+    op = ops["f32"]
+    acct = streamed_elements(op, d=D)["fwd"]
+    log(f"[3 B1 vs plain] bench graph: {graph.n_edges} edges, N_PAD {graph.n_nodes}; "
+        f"fwd nt {op.fwd.nt} ns {op.fwd.ns}, bwd nt {op.bwd.nt} ns {op.bwd.ns}; "
+        f"streamed block elements {acct['block_elems']} per direction; "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    errs = {}
+    for key, o in ops.items():
+        for direction in ("fwd", "bwd"):
+            m = getattr(o, direction)
+            for d in ((D, 2 * D) if key in ("f32", "bf16") else (D,)):
+                x = randn(m.n_cols, d)
+                ref = bsr_matmul_plain(m, x)
+                poison_allocator((m.n_rows, d))
+                errs[f"{key}.{direction}.d{d}"] = compare(
+                    f"{key} {direction} d={d}", bsr_matmul(m, x), ref)
+    # small graphs, every tile height the kernel is built for, against a
+    # dense float64 product: rows with no blocks must come out zero
+    for tile in (32, 64, 128, 256):
+        rng = np.random.default_rng(tile)
+        dense = (rng.random((1024, 1024)) < 0.01) * rng.random((1024, 1024))
+        dense[512:640] = 0.0
+        g = from_dense(dense, device=cuda)
+        m = bsr_from_graph(g, tile=tile, min_edges_per_tile=4, device=cuda).fwd
+        x = randn(1024, 96)
+        ref = (to_dense(g).double() @ x.double()).float()
+        poison_allocator((1024, 96))
+        errs[f"dense.tile{tile}"] = compare(f"dense 1024 tile={tile} d=96", bsr_matmul(m, x), ref)
+    torch.cuda.synchronize()
+
+    # ---- 4. SpmmBSR gradient ----
+    x = randn(N_PAD, D).requires_grad_()
+    ct = randn(N_PAD, D)
+    (spmm_bsr(op, x) * ct).sum().backward()
+    xp = x.detach().clone().requires_grad_()
+    (bsr_matmul_plain(op.fwd, xp) * ct).sum().backward()
+    log("[4 SpmmBSR grad]")
+    errs["grad"] = compare("dL/dx kernel (A^T over op.bwd) vs plain autograd", x.grad, xp.grad)
+
+    # ---- 5. the main path at full width ----
+    graph_bsr = attach_bsr(graph, device=cuda)
+    rng = np.random.default_rng(0)
+    x_f = torch.from_numpy(rng.normal(size=(N_PAD, D)).astype(np.float32)).to(cuda)
+    x_r = torch.from_numpy(rng.normal(size=(N_PAD, D)).astype(np.float32)).to(cuda)
+    targets = torch.from_numpy((rng.random((N_PAD, NCLASS)) < 0.1).astype(np.float32)).to(cuda)
+
+    def new_state(dropout, impl):
+        model = make_chrome_model("gcn", nclass=NCLASS, dropout=dropout, layers=LAYERS,
+                                  nfeat=D, spmm_impl=impl)
+        return create_chrome_state(model, "sgd", LR, seed=0, device=cuda)
+
+    log("[5 main path] kernel-path step vs plain COO-path step, dropout 0, same weights")
+    state_k, state_p = new_state(0.0, "pallas"), new_state(0.0, "xla")
+    _, loss_k, probs_k = chrome_train_step(state_k, x_f, x_r, graph_bsr, targets)
+    _, loss_p, probs_p = chrome_train_step(state_p, x_f, x_r, graph_bsr, targets)
+    rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    log(f"  loss kernel {loss_k.item():.8f} plain {loss_p.item():.8f} rel diff {rel:.2e} (tol 1e-5)")
+    require(rel <= 1e-5, "train-step losses disagree")
+    # grads: sums over 50k rows in another order; 1e-4 of each grad's scale
+    for (name, pk), pp in zip(state_k.model.named_parameters(), state_p.model.parameters()):
+        err = (pk.grad - pp.grad).abs().max().item()
+        scale = pp.grad.abs().max().item()
+        log(f"  grad {name}: max_abs_err {err:.3e} (tol {1e-4 * scale + 1e-8:.3e})")
+        require(err <= 1e-4 * scale + 1e-8, f"grad {name} disagrees")
+    del state_k, state_p, probs_k, probs_p
+
+    state = new_state(0.2, "auto")
+    gen_step = torch.Generator(device=cuda).manual_seed(0)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        _, loss, probs = chrome_train_step(state, x_f, x_r, graph_bsr, targets, gen_step)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    train_launches = _build.LAUNCHES["bsr_spmm"]
+    eval_loss, eval_probs = chrome_eval_step(state, x_f, x_r, graph_bsr, targets)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    eval_launches = launches["bsr_spmm"] - train_launches
+    losses = [l.item() for l in losses]
+    log(f"  {TRAIN_STEPS} train steps (dropout 0.2) losses {['%.6f' % l for l in losses]}; "
+        f"eval loss {eval_loss.item():.6f}")
+    log(f"  launches: bsr_spmm {train_launches} in {TRAIN_STEPS} train steps "
+        f"({train_launches / TRAIN_STEPS:g} per step), {eval_launches} in 1 eval step")
+    require(all(np.isfinite(losses)) and np.isfinite(eval_loss.item()), "non-finite loss")
+    require(probs.shape == eval_probs.shape == (N_PAD, NCLASS), "probs shape")
+    require(bool(torch.isfinite(eval_probs).all()), "non-finite probs")
+    require(train_launches == 8 * TRAIN_STEPS, "expected 8 B1 launches per train step")
+    require(eval_launches == 4, "expected 4 B1 launches per eval step")
+
+    # ---- 6. timings ----
+    log(f"[6 timings] {smi}")
+    x = randn(N_PAD, D)
+    ne = graph.n_edges
+    idx = torch.stack([graph.receivers[:ne].long(), graph.senders[:ne].long()])
+    adj_csr = torch.sparse_coo_tensor(idx, graph.vals[:ne], (N_PAD, N_PAD),
+                                      check_invariants=False).coalesce().to_sparse_csr()
+    errs["library"] = compare("torch.sparse.mm (CSR) vs kernel, fwd d=128",
+                              torch.sparse.mm(adj_csr, x), bsr_matmul(op.fwd, x))
+    # in turns, 5 loops each: median (min-max) ms per call
+    t = cuda_ms({
+        "fwd": lambda: bsr_matmul(op.fwd, x),
+        "bwd": lambda: bsr_matmul(op.bwd, x),
+        "plain": lambda: bsr_matmul_plain(op.fwd, x),
+        "library": lambda: torch.sparse.mm(adj_csr, x),
+    })
+    t_fwd, t_plain, t_lib = (statistics.median(t[k]) for k in ("fwd", "plain", "library"))
+    b_ms, b_by, b_bytes, b_flops = bound(op.fwd, D)
+    log(f"  B1 f32 d=128 ms/launch, median (min-max) of 5 loops of 20 in turns: "
+        f"fwd {spread(t['fwd'])}; bwd {spread(t['bwd'])}; plain {spread(t['plain'])}; "
+        f"torch.sparse.mm CSR {spread(t['library'])}")
+    log(f"  bound {b_ms:.4f} ms by {b_by} ({b_bytes / 1e6:.1f} MB of blocks, x and out; "
+        f"{b_flops / 1e9:.4f} GFLOP over the blocks' nonzeros); "
+        f"kernel at {100 * b_ms / t_fwd:.1f}% of it")
+    # the same product over the edges alone (CSR: value + column per edge,
+    # row pointers), the least any format could move and compute
+    e_bytes = 8 * ne + 4 * (N_PAD + 1) + 4 * D * 2 * N_PAD
+    e_ms = max(e_bytes / HBM_BYTES_PER_S, 2 * ne * D / PEAK_FLOPS[torch.float32]) * 1e3
+    log(f"  edge-form bound {e_ms:.4f} ms ({e_bytes / 1e6:.1f} MB, {2 * ne * D / 1e9:.4f} GFLOP); "
+        f"the blocks hold {op.fwd.nt * op.fwd.tile_r * op.fwd.tile_c + op.fwd.ns * 8 * op.fwd.tile_c} "
+        f"elements for {ne} edges")
+    for key, d in (("f32", 2 * D), ("bf16", D), ("bf16", 2 * D)):
+        m = ops[key].fwd
+        xd = randn(N_PAD, d)
+        tk = cuda_ms({key: lambda: bsr_matmul(m, xd)})[key]
+        bm, by, _, _ = bound(m, d)
+        log(f"  B1 fwd {key} d={d}: {spread(tk)} ms/launch; bound {bm:.4f} ms by {by} "
+            f"({100 * bm / statistics.median(tk):.1f}%)")
+    del x, xd
+
+    t_train = host_ms(lambda: chrome_train_step(state, x_f, x_r, graph_bsr, targets, gen_step))
+    t_eval = host_ms(lambda: chrome_eval_step(state, x_f, x_r, graph_bsr, targets))
+    state_p = new_state(0.2, "xla")
+    t_train_coo = host_ms(lambda: chrome_train_step(state_p, x_f, x_r, graph_bsr, targets, gen_step))
+    del state_p
+    # bench.py's convention: each edge passes per layer, per strand, fwd + bwd
+    edges_per_step = ne * LAYERS * 2 * 2
+    t_step = statistics.median(t_train)
+    log(f"  host ms per step, median (min-max) of 5 loops of 5: train {spread(t_train)} "
+        f"= {edges_per_step / t_step / 1e3:.1f} M edges/s; plain COO path train "
+        f"{spread(t_train_coo)}; eval {spread(t_eval)}; "
+        f"8 B1 launches at fwd time make {8 * t_fwd:.4f} ms")
+
+    if args.profile:
+        profile_steps(lambda: chrome_train_step(state, x_f, x_r, graph_bsr, targets, gen_step),
+                      t_step)
+
+    # ---- 7. result ----
+    kernels = [{
+        "name": "bsr_spmm",
+        "route": "cuda",
+        "source": "chromegcn_tpu_torch/csrc/bsr_spmm.cu",
+        "replaces": "chromegcn_tpu/ops/spmm_pallas.py:289",
+        "launches": launches["bsr_spmm"],
+        "max_abs_err": max(v for k, v in errs.items() if k != "library"),
+        "ms": t_fwd,
+        "plain_ms": t_plain,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": t_lib,
+    }]
+    log(f"[7 done] in {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
