@@ -6,42 +6,62 @@ H100, sm_90a):
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``chromegcn_tpu_torch/csrc`` and
-drives the port only (no JAX), one line per phase:
+It builds the port's CUDA kernels from ``chromegcn_tpu_torch/csrc`` (one nvcc
+per source, started together) and drives the port only (no JAX), one line
+per phase:
 
 1. the card (nvidia-smi name and power limit) and torch/CUDA versions;
-2. the kernel build, with nvcc's register/spill report;
+2. the kernel builds, with nvcc's register/spill report;
 3. kernel B1 (bsr_spmm) against its plain PyTorch version on the card:
    the chr1-scale bench graph's forward and transposed tilings at d 128 and
    256, f32 and bf16 tiles, tile 256 with an integer threshold, an
    all-strips tiling, and small graphs against a dense float64 product;
 4. the SpmmBSR gradient against the plain version's autograd;
-5. the main path at bench.py's full width (N_PAD 50,176, d 128, 919
+5. the unfused main path at bench.py's full width (N_PAD 50,176, d 128, 919
    classes, 2 layers, 2 strands, SGD lr 0.25): one kernel-path train step
    against one step of the plain COO path from the same weights, then
    5 train steps with dropout 0.2 and one eval step, counting kernel
-   launches (8 per train step, 4 per eval step);
-6. timings after warm-up, each the median (min-max) of 5 loops: B1 per
-   launch, its plain version and torch.sparse.mm on the same adjacency in
-   CSR (a yardstick the port never calls), with CUDA events, timed in turns;
-   the bound; the train and eval step on the host clock;
-7. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+   launches (8 B1 per train step, 4 per eval step);
+6. kernels B2 and B3 (gcn_fused, fwd and bwd) against their plain versions:
+   the bench graph's tilings at d 128, f32 and bf16 tiles, and a small graph
+   with an empty range of row blocks at d 32 for every tile height the
+   kernels are built for, against a dense float64 product;
+7. the FusedGatedLayer gradients (dx, dw, db, du, dbu) against the plain
+   version's autograd, at full width;
+8. the fused main path at full width (``fused="on"``): one train step
+   against one unfused kernel-path step from the same weights, then 5 train
+   steps with dropout 0.2 and one eval step (4 B2 + 4 B3 per train step,
+   4 B2 per eval step, no B1);
+9. the finetune CLI (``chromegcn_tpu_torch.main``) with ``-gcn_fused on``,
+   2 epochs on a synthetic world written with the port's savers (train: the
+   bench chromosome; valid and test: one 10,000-window chromosome each):
+   per-epoch losses, meanAUC, wall time and kernel launches;
+10. timings after warm-up, each the median (min-max) of 5 loops, the
+   functions of a group timed in turns: B1, B2 and B3 per launch with CUDA
+   events, their plain versions and a library yardstick the port never
+   calls (torch.sparse.mm over CSR, composed with the epilogue's ops for
+   B2/B3); the bounds; the train and eval steps, unfused and fused, on the
+   host clock;
+11. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a non-zero exit code.
 
-``python3 chip_smoke.py --profile`` adds to phase 6 a torch.profiler trace
-of 3 train steps: device time per step by kernel, and the device's idle
-share of the step.
+``python3 chip_smoke.py --profile`` adds to phase 10 a torch.profiler trace
+of 3 train steps of each path: device time per step by kernel, and the
+device's idle share of the step.
 """
 
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -50,6 +70,12 @@ import torch
 N_VALID, N_PAD, N_PAIRS = 50_000, 50_176, 250_000
 D, NCLASS, LAYERS, LR = 128, 919, 2, 0.25
 TRAIN_STEPS = 5
+# the finetune CLI's synthetic world: the bench chromosome to train on, one
+# 10,000-window chromosome each to validate and test on
+CLI_SPLITS = {"train": ("chr1", N_VALID, N_PAIRS, 0), "valid": ("chr2", 10_000, 50_000, 1),
+              "test": ("chr3", 10_000, 50_000, 2)}
+CLI_EPOCHS = 2
+KERNELS = ("bsr_spmm", "gcn_fused")
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -58,6 +84,7 @@ ATOL, RTOL = 1e-5, 1e-5
 # profile groups, by words in the kernel's name (first match wins)
 PROFILE_GROUPS = (
     ("B1 bsr_spmm", ("bsr_spmm",)),
+    ("B2/B3 gcn_fused", ("gcn_fused",)),
     ("GEMM", ("gemm",)),
     ("gather/scatter", ("index", "scatter", "gather")),
     ("reductions", ("reduce",)),
@@ -107,19 +134,23 @@ def spread(times):
     return f"{statistics.median(times):.4f} ({times[0]:.4f}-{times[-1]:.4f})"
 
 
-def host_ms(fn, iters=5, repeats=5, warmup=2):
-    """Sorted host-clock ms per call over ``repeats`` synchronized loops."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        for _ in range(iters):
+def host_ms(fns, iters=5, repeats=5, warmup=2):
+    """{name: sorted host-clock ms per call} for each function of ``fns``,
+    ``repeats`` synchronized loops of ``iters`` calls, the functions timed
+    in turns."""
+    for fn in fns.values():
+        for _ in range(warmup):
             fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3 / iters)
-    return sorted(times)
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3 / iters)
+    return {name: sorted(t) for name, t in times.items()}
 
 
 def poison_allocator(shape):
@@ -129,11 +160,15 @@ def poison_allocator(shape):
     del t
 
 
-def compare(name, got, ref):
+def compare(name, got, ref, scaled=False):
+    """max |got - ref|, required within allclose(rtol, atol); ``scaled``
+    sets atol to ATOL times the reference's largest magnitude instead."""
     err = (got - ref).abs().max().item()
-    tol = ATOL + RTOL * ref.abs().max().item()
-    ok = bool(torch.isfinite(got).all()) and torch.allclose(got, ref, rtol=RTOL, atol=ATOL)
-    log(f"  {name}: max_abs_err {err:.3e} (allclose rtol {RTOL} atol {ATOL}; "
+    scale = ref.abs().max().item()
+    atol = ATOL * scale if scaled else ATOL
+    tol = atol + RTOL * scale
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(got, ref, rtol=RTOL, atol=atol)
+    log(f"  {name}: max_abs_err {err:.3e} (allclose rtol {RTOL} atol {atol:.3e}; "
         f"max tol {tol:.3e}) {'ok' if ok else 'MISMATCH'}")
     require(ok, f"{name} disagrees with its reference")
     return err
@@ -155,6 +190,57 @@ def bound(m, d):
     t_ops = flops / PEAK_FLOPS[m.tiles.dtype] * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, nbytes, flops
+
+
+def fused_bound(m, d, bwd):
+    """Least time (ms) for one B2 (``bwd`` False: read x, w, b, write z) or
+    B3 (read ds, dx_dir, w, write h and dx) launch over ``m``: the stream's
+    bytes and operations as ``bound``, plus the dense arrays and the
+    epilogue GEMM (2 n_rows d^2 f32 operations). Returns (ms, 'bytes' or
+    'operations', bytes, operations)."""
+    _, _, nbytes, stream_flops = bound(m, d)
+    nbytes += 4 * (d * d + m.n_rows * d * (2 if bwd else 0) + (0 if bwd else d))
+    epi_flops = 2 * m.n_rows * d * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (stream_flops / PEAK_FLOPS[m.tiles.dtype] + epi_flops / PEAK_FLOPS[torch.float32]) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, nbytes, stream_flops + epi_flops
+
+
+def csr_of(graph, transpose=False):
+    """The graph's adjacency (or its transpose) as a torch CSR tensor: the
+    library yardstick's operand, never used by the port."""
+    ne = graph.n_edges
+    rows, cols = graph.receivers[:ne].long(), graph.senders[:ne].long()
+    if transpose:
+        rows, cols = cols, rows
+    return torch.sparse_coo_tensor(torch.stack([rows, cols]), graph.vals[:ne],
+                                   (graph.n_nodes, graph.n_nodes),
+                                   check_invariants=False).coalesce().to_sparse_csr()
+
+
+def write_cli_world(root, argv):
+    """The CLI's inputs under ``root``: per split, random CNN features (d 128),
+    919 sparse binary targets and a Hi-C contact list, written with the
+    port's savers where the finetune mode reads them."""
+    from chromegcn_tpu_torch.data.artifact import save_graph_edges
+    from chromegcn_tpu_torch.data.loader import ChromFeatures, save_chrom_features
+    from chromegcn_tpu_torch.data.synthetic import make_hic_edges
+    from chromegcn_tpu_torch.main import build_parser, config_from_args
+
+    cfg = config_from_args(build_parser().parse_args(argv))
+    os.makedirs(cfg.stage1_run_dir, exist_ok=True)
+    os.makedirs(cfg.graph_root, exist_ok=True)
+    rng = np.random.default_rng(0)
+    for split, (chrom, n, pairs, seed) in CLI_SPLITS.items():
+        feats = ChromFeatures(
+            forward=rng.normal(size=(n, D)).astype(np.float32),
+            backward=rng.normal(size=(n, D)).astype(np.float32),
+            target=(rng.random((n, NCLASS)) < 0.05).astype(np.float32),
+        )
+        save_chrom_features(cfg.feature_path(split), {chrom: feats})
+        save_graph_edges(cfg.graph_path(split), {chrom: make_hic_edges(n, pairs, seed=seed)})
+    return cfg
 
 
 def profile_steps(step, t_step_ms, steps=3):
@@ -211,8 +297,13 @@ def main():
         return 1
     sys.path.insert(0, here)
     from chromegcn_tpu_torch.data.synthetic import make_hic_edges
+    from chromegcn_tpu_torch.main import main as cli_main
     from chromegcn_tpu_torch.models.chrome import make_chrome_model
     from chromegcn_tpu_torch.ops import _build
+    from chromegcn_tpu_torch.ops import gcn_fused
+    from chromegcn_tpu_torch.ops.gcn_fused import (
+        fused_bwd, fused_bwd_plain, fused_fwd, fused_fwd_plain, fused_gated_layer,
+    )
     from chromegcn_tpu_torch.ops.sparse import build_chrom_graph, from_dense, to_dense
     from chromegcn_tpu_torch.ops.spmm_bsr import (
         attach_bsr, bsr_from_graph, bsr_matmul, bsr_matmul_plain, spmm_bsr,
@@ -233,14 +324,21 @@ def main():
     log(f"[1 card] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    # ---- 2. build ----
+    # ---- 2. build: one nvcc per source, started together ----
     t0 = time.perf_counter()
-    build_log = _build.build("bsr_spmm")
-    log(f"[2 build] bsr_spmm {'built' if build_log is not None else 'already built'} "
-        f"in {time.perf_counter() - t0:.1f} s")
-    for line in (build_log or "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  bsr_spmm: {line.strip()}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        build_logs = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    status = ", ".join(f"{k} {'built' if v is not None else 'already built'}"
+                       for k, v in build_logs.items())
+    log(f"[2 build] {status} in {time.perf_counter() - t0:.1f} s")
+    for name, build_log in build_logs.items():
+        for line in (build_log or "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+    fused_lib = gcn_fused._kernel_lib()
+    for tile, d in ((32, 32), (64, 128), (128, 128), (128, 192)):
+        require(fused_lib.gcn_fused_smem_bytes(tile, d) == gcn_fused.smem_bytes(tile, d),
+                f"fused_fits' shared-memory plan differs from the kernel's at tile {tile}, d {d}")
 
     gen = torch.Generator(device=cuda).manual_seed(0)
 
@@ -304,10 +402,18 @@ def main():
     x_r = torch.from_numpy(rng.normal(size=(N_PAD, D)).astype(np.float32)).to(cuda)
     targets = torch.from_numpy((rng.random((N_PAD, NCLASS)) < 0.1).astype(np.float32)).to(cuda)
 
-    def new_state(dropout, impl):
+    def new_state(dropout, impl, fused="off"):
         model = make_chrome_model("gcn", nclass=NCLASS, dropout=dropout, layers=LAYERS,
-                                  nfeat=D, spmm_impl=impl)
+                                  nfeat=D, spmm_impl=impl, fused=fused)
         return create_chrome_state(model, "sgd", LR, seed=0, device=cuda)
+
+    def check_grads(state, ref_state):
+        # sums over 50k rows in another order: 1e-4 of each grad's scale
+        for (name, pk), pp in zip(state.model.named_parameters(), ref_state.model.parameters()):
+            err = (pk.grad - pp.grad).abs().max().item()
+            scale = pp.grad.abs().max().item()
+            log(f"  grad {name}: max_abs_err {err:.3e} (tol {1e-4 * scale + 1e-8:.3e})")
+            require(err <= 1e-4 * scale + 1e-8, f"grad {name} disagrees")
 
     log("[5 main path] kernel-path step vs plain COO-path step, dropout 0, same weights")
     state_k, state_p = new_state(0.0, "pallas"), new_state(0.0, "xla")
@@ -316,12 +422,7 @@ def main():
     rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     log(f"  loss kernel {loss_k.item():.8f} plain {loss_p.item():.8f} rel diff {rel:.2e} (tol 1e-5)")
     require(rel <= 1e-5, "train-step losses disagree")
-    # grads: sums over 50k rows in another order; 1e-4 of each grad's scale
-    for (name, pk), pp in zip(state_k.model.named_parameters(), state_p.model.parameters()):
-        err = (pk.grad - pp.grad).abs().max().item()
-        scale = pp.grad.abs().max().item()
-        log(f"  grad {name}: max_abs_err {err:.3e} (tol {1e-4 * scale + 1e-8:.3e})")
-        require(err <= 1e-4 * scale + 1e-8, f"grad {name} disagrees")
+    check_grads(state_k, state_p)
     del state_k, state_p, probs_k, probs_p
 
     state = new_state(0.2, "auto")
@@ -348,14 +449,164 @@ def main():
     require(bool(torch.isfinite(eval_probs).all()), "non-finite probs")
     require(train_launches == 8 * TRAIN_STEPS, "expected 8 B1 launches per train step")
     require(eval_launches == 4, "expected 4 B1 launches per eval step")
+    require(not launches.get("gcn_fused_fwd") and not launches.get("gcn_fused_bwd"),
+            "the unfused path launched a fused kernel")
 
-    # ---- 6. timings ----
-    log(f"[6 timings] {smi}")
+    # ---- 6. B2 and B3 against their plain versions ----
+    log("[6 B2/B3 vs plain] bench graph d=128 (f32, bf16 tiles); dense 1024 graphs "
+        "with an empty range of row blocks, d=32")
+    w, b = randn(D, D) / D ** 0.5, 0.1 * randn(D)
+    errs_fused = {"gcn_fused_fwd": [], "gcn_fused_bwd": []}
+    for key in ("f32", "bf16"):
+        o = ops[key]
+        x, ds, dx_dir = randn(N_PAD, D), randn(N_PAD, D), randn(N_PAD, D)
+        ref = fused_fwd_plain(o.fwd, x, w, b)
+        poison_allocator((N_PAD, D))
+        errs_fused["gcn_fused_fwd"].append(compare(f"B2 {key} z", fused_fwd(o.fwd, x, w, b), ref))
+        h_ref, dx_ref = fused_bwd_plain(o.bwd, ds, dx_dir, w)
+        poison_allocator((2 * N_PAD, D))
+        h, dx = fused_bwd(o.bwd, ds, dx_dir, w)
+        errs_fused["gcn_fused_bwd"].append(compare(f"B3 {key} h", h, h_ref))
+        errs_fused["gcn_fused_bwd"].append(compare(f"B3 {key} dx (atol of scale)", dx, dx_ref,
+                                                   scaled=True))
+    # rows and columns 512-639 hold no edge: every tile height leaves at least
+    # one row block empty in both directions (z = tanh(b), h = 0, dx = dx_dir)
+    for tile in gcn_fused.FUSED_TILE_ROWS:
+        rng = np.random.default_rng(tile)
+        dense = (rng.random((1024, 1024)) < 0.01) * rng.random((1024, 1024))
+        dense[512:640] = 0.0
+        dense[:, 512:640] = 0.0
+        g = from_dense(dense, device=cuda)
+        o = bsr_from_graph(g, tile=tile, min_edges_per_tile=4, device=cuda)
+        a64 = to_dense(g).double()
+        d = 32
+        x, ds, dx_dir = randn(1024, d), randn(1024, d), randn(1024, d)
+        ws, bs = randn(d, d) / d ** 0.5, 0.1 * randn(d)
+        ref = torch.tanh((a64 @ x.double()) @ ws.double() + bs.double()).float()
+        poison_allocator((1024, d))
+        errs_fused["gcn_fused_fwd"].append(
+            compare(f"B2 dense tile={tile} d={d} vs float64", fused_fwd(o.fwd, x, ws, bs), ref))
+        h64 = a64.T @ ds.double()
+        poison_allocator((2 * 1024, d))
+        h, dx = fused_bwd(o.bwd, ds, dx_dir, ws)
+        errs_fused["gcn_fused_bwd"].append(
+            compare(f"B3 dense tile={tile} h vs float64", h, h64.float()))
+        errs_fused["gcn_fused_bwd"].append(compare(
+            f"B3 dense tile={tile} dx vs float64", dx,
+            (dx_dir.double() + h64 @ ws.double().T).float(), scaled=True))
+    torch.cuda.synchronize()
+
+    # ---- 7. FusedGatedLayer gradients ----
+    log("[7 FusedGatedLayer grad] vs autograd of the plain version; "
+        "loss touches x_next, z and g")
+    x, u, bu = randn(N_PAD, D), 0.1 * randn(D, 1), 0.1 * randn(1)
+    r1, r2, r3 = randn(N_PAD, D), randn(N_PAD, D), randn(N_PAD, 1)
+
+    def layer_grads(layer):
+        leaves = [t.clone().requires_grad_() for t in (x, w, b, u, bu)]
+        xn, z, g = layer(*leaves)
+        ((xn * r1).sum() + (z * r2).sum() + (g * r3).sum()).backward()
+        return [t.grad for t in leaves]
+
+    def plain_layer(x, w, b, u, bu):
+        z = fused_fwd_plain(op.fwd, x, w, b)
+        g = torch.sigmoid(z @ u + bu)
+        return (1.0 - g) * x + g * z, z, g
+
+    for name, got, ref in zip(("dx", "dw", "db", "du", "dbu"),
+                              layer_grads(lambda *a: fused_gated_layer(op, *a)),
+                              layer_grads(plain_layer)):
+        compare(f"{name} (atol of scale)", got, ref, scaled=True)
+
+    # ---- 8. the fused main path at full width ----
+    log("[8 fused main path] fused='on' step vs unfused kernel-path step, dropout 0, "
+        "same weights")
+    state_f, state_u = new_state(0.0, "pallas", "on"), new_state(0.0, "pallas")
+    require(state_f.model._use_fused(x_f, graph_bsr), "the full-width model does not fuse")
+    _, loss_f, _ = chrome_train_step(state_f, x_f, x_r, graph_bsr, targets)
+    _, loss_u, _ = chrome_train_step(state_u, x_f, x_r, graph_bsr, targets)
+    rel = abs(loss_f.item() - loss_u.item()) / abs(loss_u.item())
+    log(f"  loss fused {loss_f.item():.8f} unfused {loss_u.item():.8f} rel diff {rel:.2e} "
+        "(tol 1e-5)")
+    require(rel <= 1e-5, "fused and unfused train-step losses disagree")
+    check_grads(state_f, state_u)
+    del state_f, state_u
+
+    state_fused = new_state(0.2, "auto", "on")
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    losses = [chrome_train_step(state_fused, x_f, x_r, graph_bsr, targets, gen_step)[1]
+              for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    train_counts = dict(_build.LAUNCHES)
+    _build.LAUNCHES.clear()
+    eval_loss, eval_probs = chrome_eval_step(state_fused, x_f, x_r, graph_bsr, targets)
+    torch.cuda.synchronize()
+    eval_counts = dict(_build.LAUNCHES)
+    losses = [l.item() for l in losses]
+    log(f"  {TRAIN_STEPS} train steps (dropout 0.2) losses {['%.6f' % l for l in losses]}; "
+        f"eval loss {eval_loss.item():.6f}")
+    log(f"  launches: {train_counts} in {TRAIN_STEPS} train steps, {eval_counts} in 1 eval step")
+    require(all(np.isfinite(losses)) and np.isfinite(eval_loss.item()), "non-finite fused loss")
+    require(bool(torch.isfinite(eval_probs).all()), "non-finite fused probs")
+    require(train_counts == {"gcn_fused_fwd": 4 * TRAIN_STEPS, "gcn_fused_bwd": 4 * TRAIN_STEPS},
+            "expected 4 B2 + 4 B3 launches and no B1 per fused train step")
+    require(eval_counts == {"gcn_fused_fwd": 4}, "expected 4 B2 launches per fused eval step")
+
+    # ---- 9. the finetune CLI, -gcn_fused on ----
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="cli_", dir=os.path.join(here, "build"))
+    try:
+        argv = ["-dataroot", os.path.join(work, "data"), "-results_dir",
+                os.path.join(work, "results"), "-cell_type", "SYN", "-load_pretrained",
+                "-d_model", str(D), "-gcn_layers", str(LAYERS), "-optim", "sgd",
+                "-lr", str(LR), "-gcn_dropout", "0.2", "-epochs", str(CLI_EPOCHS),
+                "-adj_type", "hic", "-spmm_form", "bsr", "-gcn_fused", "on"]
+        t0 = time.perf_counter()
+        cli_cfg = write_cli_world(work, argv)
+        log(f"[9 CLI] python -m chromegcn_tpu_torch.main {' '.join(argv[6:])}; synthetic "
+            f"world {', '.join(f'{k} {c} {n} windows' for k, (c, n, _, _) in CLI_SPLITS.items())} "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        cli_main(argv)
+        torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t0
+        cli_counts = dict(_build.LAUNCHES)
+        logs = {}
+        for split in ("train", "valid", "test"):
+            with open(os.path.join(cli_cfg.run_dir, f"{split}.log")) as f:
+                logs[split] = [[float(v) for v in line.split(",")] for line in f]
+        for e in range(CLI_EPOCHS):
+            log(f"  epoch {e + 1}: " + "; ".join(
+                f"{split} loss {logs[split][e][1]:.6f} meanAUC {logs[split][e][3]:.4f}"
+                for split in logs))
+        log(f"  {CLI_EPOCHS} epochs in {t_cli:.1f} s (set-up included); launches {cli_counts}")
+        # the host's share of an epoch: the metrics over one split's predictions
+        from chromegcn_tpu_torch.utils.evals import compute_metrics
+
+        rng = np.random.default_rng(1)
+        for split, (_, n, _, _) in CLI_SPLITS.items():
+            preds = rng.random((n, NCLASS), dtype=np.float32)
+            targs = (rng.random((n, NCLASS)) < 0.05).astype(np.float32)
+            t0 = time.perf_counter()
+            compute_metrics(preds, targs, 0.0)
+            log(f"  host compute_metrics over {split}'s {n} x {NCLASS} predictions: "
+                f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    require(all(len(v) == CLI_EPOCHS for v in logs.values()), "CLI logged a wrong epoch count")
+    require(all(np.isfinite(row[1]) for v in logs.values() for row in v), "non-finite CLI loss")
+    # per epoch: 4 B2 + 4 B3 for the train chromosome, 4 B2 per eval chromosome
+    require(cli_counts == {"gcn_fused_fwd": CLI_EPOCHS * 12, "gcn_fused_bwd": CLI_EPOCHS * 4},
+            "expected 12 B2 and 4 B3 launches per CLI epoch, and no B1")
+
+    # ---- 10. timings ----
+    log(f"[10 timings] {smi}")
     x = randn(N_PAD, D)
     ne = graph.n_edges
-    idx = torch.stack([graph.receivers[:ne].long(), graph.senders[:ne].long()])
-    adj_csr = torch.sparse_coo_tensor(idx, graph.vals[:ne], (N_PAD, N_PAD),
-                                      check_invariants=False).coalesce().to_sparse_csr()
+    adj_csr = csr_of(graph)
     errs["library"] = compare("torch.sparse.mm (CSR) vs kernel, fwd d=128",
                               torch.sparse.mm(adj_csr, x), bsr_matmul(op.fwd, x))
     # in turns, 5 loops each: median (min-max) ms per call
@@ -387,26 +638,66 @@ def main():
         bm, by, _, _ = bound(m, d)
         log(f"  B1 fwd {key} d={d}: {spread(tk)} ms/launch; bound {bm:.4f} ms by {by} "
             f"({100 * bm / statistics.median(tk):.1f}%)")
-    del x, xd
+    del xd
 
-    t_train = host_ms(lambda: chrome_train_step(state, x_f, x_r, graph_bsr, targets, gen_step))
-    t_eval = host_ms(lambda: chrome_eval_step(state, x_f, x_r, graph_bsr, targets))
+    # B2 and B3 at the main path's shapes; the yardstick composes
+    # torch.sparse.mm (CSR) with the epilogue's ops, as no single call does both
+    ds, dx_dir = randn(N_PAD, D), randn(N_PAD, D)
+    adj_t_csr = csr_of(graph, transpose=True)
+    compare("library tanh(sparse.mm(A, x) @ w + b) vs B2",
+            torch.tanh(torch.sparse.mm(adj_csr, x) @ w + b), fused_fwd(op.fwd, x, w, b))
+    t = cuda_ms({
+        "B2": lambda: fused_fwd(op.fwd, x, w, b),
+        "B2 plain": lambda: fused_fwd_plain(op.fwd, x, w, b),
+        "B2 library": lambda: torch.tanh(torch.sparse.mm(adj_csr, x) @ w + b),
+        "B3": lambda: fused_bwd(op.bwd, ds, dx_dir, w),
+        "B3 plain": lambda: fused_bwd_plain(op.bwd, ds, dx_dir, w),
+        "B3 library": lambda: torch.addmm(dx_dir, torch.sparse.mm(adj_t_csr, ds), w.T),
+    })
+    fused_rows = {}
+    for kernel, key, m, bwd in (("gcn_fused_fwd", "B2", op.fwd, False),
+                                ("gcn_fused_bwd", "B3", op.bwd, True)):
+        ms, ms_plain, ms_lib = (statistics.median(t[k]) for k in (key, f"{key} plain",
+                                                                   f"{key} library"))
+        fb_ms, fb_by, fb_bytes, fb_flops = fused_bound(m, D, bwd)
+        fused_rows[kernel] = (ms, ms_plain, ms_lib, fb_ms, fb_by)
+        log(f"  {key} f32 d=128 ms/launch, median (min-max) of 5 loops of 20 in turns: "
+            f"kernel {spread(t[key])}; plain {spread(t[f'{key} plain'])}; library "
+            f"composition {spread(t[f'{key} library'])}; bound {fb_ms:.4f} ms by {fb_by} "
+            f"({fb_bytes / 1e6:.1f} MB, {fb_flops / 1e9:.4f} GFLOP); kernel at "
+            f"{100 * fb_ms / ms:.1f}% of it")
+    del x, ds, dx_dir
+
     state_p = new_state(0.2, "xla")
-    t_train_coo = host_ms(lambda: chrome_train_step(state_p, x_f, x_r, graph_bsr, targets, gen_step))
+    steps = host_ms({
+        "train": lambda: chrome_train_step(state, x_f, x_r, graph_bsr, targets, gen_step),
+        "fused train": lambda: chrome_train_step(state_fused, x_f, x_r, graph_bsr, targets,
+                                                 gen_step),
+        "coo train": lambda: chrome_train_step(state_p, x_f, x_r, graph_bsr, targets, gen_step),
+        "eval": lambda: chrome_eval_step(state, x_f, x_r, graph_bsr, targets),
+        "fused eval": lambda: chrome_eval_step(state_fused, x_f, x_r, graph_bsr, targets),
+    })
     del state_p
     # bench.py's convention: each edge passes per layer, per strand, fwd + bwd
     edges_per_step = ne * LAYERS * 2 * 2
-    t_step = statistics.median(t_train)
-    log(f"  host ms per step, median (min-max) of 5 loops of 5: train {spread(t_train)} "
-        f"= {edges_per_step / t_step / 1e3:.1f} M edges/s; plain COO path train "
-        f"{spread(t_train_coo)}; eval {spread(t_eval)}; "
-        f"8 B1 launches at fwd time make {8 * t_fwd:.4f} ms")
+    t_step, t_fused_step = (statistics.median(steps[k]) for k in ("train", "fused train"))
+    log(f"  host ms per step, median (min-max) of 5 loops of 5 in turns: train "
+        f"{spread(steps['train'])} = {edges_per_step / t_step / 1e3:.1f} M edges/s; fused "
+        f"train {spread(steps['fused train'])} = {edges_per_step / t_fused_step / 1e3:.1f} M "
+        f"edges/s; plain COO path train {spread(steps['coo train'])}; eval "
+        f"{spread(steps['eval'])}; fused eval {spread(steps['fused eval'])}")
+    log(f"  8 B1 launches at fwd time make {8 * t_fwd:.4f} ms; 4 B2 + 4 B3 launches make "
+        f"{4 * fused_rows['gcn_fused_fwd'][0] + 4 * fused_rows['gcn_fused_bwd'][0]:.4f} ms")
 
     if args.profile:
+        log("  unfused train step:")
         profile_steps(lambda: chrome_train_step(state, x_f, x_r, graph_bsr, targets, gen_step),
                       t_step)
+        log("  fused train step:")
+        profile_steps(lambda: chrome_train_step(state_fused, x_f, x_r, graph_bsr, targets,
+                                                gen_step), t_fused_step)
 
-    # ---- 7. result ----
+    # ---- 11. result ----
     kernels = [{
         "name": "bsr_spmm",
         "route": "cuda",
@@ -419,8 +710,22 @@ def main():
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": t_lib,
-    }]
-    log(f"[7 done] in {time.perf_counter() - t_start:.1f} s")
+    }] + [{
+        "name": kernel,
+        "route": "cuda",
+        "source": "chromegcn_tpu_torch/csrc/gcn_fused.cu",
+        "replaces": replaces,
+        # the CLI's run (phase 9), the slice's main path
+        "launches": cli_counts[kernel],
+        "max_abs_err": max(errs_fused[kernel]),
+        "ms": fused_rows[kernel][0],
+        "plain_ms": fused_rows[kernel][1],
+        "bound_ms": fused_rows[kernel][3],
+        "bound_by": fused_rows[kernel][4],
+        "library_ms": fused_rows[kernel][2],
+    } for kernel, replaces in (("gcn_fused_fwd", "chromegcn_tpu/ops/gcn_fused.py:85"),
+                               ("gcn_fused_bwd", "chromegcn_tpu/ops/gcn_fused.py:206"))]
+    log(f"[11 done] in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -12,6 +12,11 @@ over the Hi-C adjacency, then re-classified
 Parameter names are the reference torch model's (utils/parity.py:38-47):
 ``GC1.weight`` stored (in, out), ``W1``, ``GC2``, ``W2``, ``batch_norm``,
 ``out``. The forward always gates; ``gate`` is kept for config parity.
+
+``fused="on"`` runs each layer through ``ops.gcn_fused.fused_gated_layer``
+(kernels B2 and B3) when the graph carries a BSR operator the kernels take
+(reference: models/chrome.py:151-217). The parameters are the same ones, so
+a state_dict carries over between the two paths.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ import torch
 from torch import nn
 
 from chromegcn_tpu_torch.models.norm import MaskedBatchNorm
+from chromegcn_tpu_torch.ops.gcn_fused import fused_fits, fused_gated_layer
 from chromegcn_tpu_torch.ops.sparse import SparseGraph
 from chromegcn_tpu_torch.ops.spmm import spmm
+from chromegcn_tpu_torch.ops.spmm_bsr import BSROperator
 
 
 def _dropout(
@@ -95,15 +102,13 @@ class ChromeGCN(nn.Module):
         fused: str = "off",
     ):
         super().__init__()
-        if fused == "on":
-            raise NotImplementedError(
-                "fused='on' (the fused gated layer, TPU kernels B2/B3 in "
-                "ops/gcn_fused.py) is not ported yet: ROADMAP item A8"
-            )
-        if fused != "off":
+        if fused not in ("off", "on"):
             raise ValueError(f"fused must be 'off' or 'on', got {fused!r}")
         if layers not in (1, 2):
             raise ValueError(f"layers must be 1 or 2, got {layers}")
+        self.nfeat, self.nhid = nfeat, nhid
+        self.spmm_impl = spmm_impl
+        self.fused = fused
         self.dropout = dropout
         self.gate = gate
         self.layers = layers
@@ -133,6 +138,31 @@ class ChromeGCN(nn.Module):
         bn.running_mean.zero_()
         bn.running_var.fill_(1.0)
 
+    def _use_fused(self, x: torch.Tensor, graph: Optional[SparseGraph]) -> bool:
+        """The reference's conditions (models/chrome.py:151-163), with the
+        kernels' own ``fused_fits`` in place of the TPU's VMEM budget."""
+        return (
+            self.fused == "on"
+            and self.spmm_impl in ("auto", "pallas")
+            and graph is not None
+            and isinstance(graph.bsr, BSROperator)
+            and x.dim() == 2
+            and x.shape[-1] == self.nhid == self.nfeat
+            and fused_fits(graph.bsr, x.shape[-1])
+        )
+
+    @staticmethod
+    def _gated_layer(gc: GraphConvolution, gate: nn.Linear, x: torch.Tensor,
+                     graph: Optional[SparseGraph], use_fused: bool):
+        """One gated residual layer; returns (x_next, g)."""
+        if use_fused:
+            x, _, g = fused_gated_layer(graph.bsr, x, gc.weight, gc.bias,
+                                        gate.weight.t(), gate.bias)
+            return x, g
+        z = torch.tanh(gc(x, graph))
+        g = torch.sigmoid(gate(z))
+        return (1.0 - g) * x + g * z, g
+
     def forward(
         self,
         x_in: torch.Tensor,
@@ -151,17 +181,13 @@ class ChromeGCN(nn.Module):
         features."""
         if node_mask is None and graph is not None:
             node_mask = graph.node_mask
-        x = x_in
-        z = torch.tanh(self.GC1(x, graph))
-        g = torch.sigmoid(self.W1(z))
-        x = (1.0 - g) * x + g * z
+        use_fused = self._use_fused(x_in, graph)
+        x, g = self._gated_layer(self.GC1, self.W1, x_in, graph, use_fused)
 
         g2 = None
         if self.layers == 2:
             x = _dropout(x, self.dropout, train, generator)
-            z2 = torch.tanh(self.GC2(x, graph))
-            g2 = torch.sigmoid(self.W2(z2))
-            x = (1.0 - g2) * x + g2 * z2
+            x, g2 = self._gated_layer(self.GC2, self.W2, x, graph, use_fused)
 
         h = torch.relu(x)
         h = self.batch_norm(h, use_running_average=not train, mask=node_mask)

@@ -1,11 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface. It is
+Each kernel library is one ``csrc/<name>.cu`` with a plain C interface
+(``bsr_spmm``, ``gcn_fused``); it may include headers from ``csrc/``. It is
 compiled with ``nvcc`` for ``sm_90a`` (Hopper) into a shared library under
 ``build/kernels/`` at the repository root, at first use, and loaded with
-ctypes. The library's file name carries a hash of its source and of the
-nvcc flags, so an edited kernel or flag is rebuilt and a stale build is never
-loaded. Only the sources in this package are built.
+ctypes. The library's file name carries a hash of its source, of every
+``csrc/`` header it includes, and of the nvcc flags, so an edited kernel,
+header or flag is rebuilt and a stale build is never loaded. Only the
+sources in this package are built.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc``.
@@ -17,10 +19,11 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -49,10 +52,32 @@ def find_nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every file under ``csrc/`` it includes with
+    ``#include "..."``, directly or through another header."""
+    todo, seen = [(CSRC / f"{name}.cu").resolve()], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.is_file() and CSRC.resolve() in dep.parents:
+                todo.append(dep)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """The library's path, keyed on a hash of its source and of NVCC_FLAGS,
-    so a change to either is rebuilt and a stale build is never loaded."""
-    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    """The library's path, keyed on a hash of its sources (``sources``) and
+    of NVCC_FLAGS, so a change to any of them is rebuilt and a stale build is
+    never loaded."""
+    h = hashlib.sha1()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
     h.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

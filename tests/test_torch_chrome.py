@@ -144,8 +144,6 @@ def test_init_scales():
 
 
 def test_unported_options_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A8"):
-        ChromeGCN(fused="on")
     with pytest.raises(NotImplementedError, match="A12"):
         make_chrome_model("rnn", nclass=4)
     with pytest.raises(ValueError):

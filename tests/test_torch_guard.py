@@ -10,13 +10,16 @@ import pytest
 import torch
 
 from chromegcn_tpu_torch import resolve_device
+from chromegcn_tpu_torch.config import Config
+from chromegcn_tpu_torch.main import main
 from chromegcn_tpu_torch.models.chrome import make_chrome_model
 from chromegcn_tpu_torch.ops import sparse as tsp
 from chromegcn_tpu_torch.ops.spmm_bsr import attach_bsr
 from chromegcn_tpu_torch.train import finetune as tft
+from chromegcn_tpu_torch.train.runner import run_finetune
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chromegcn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "chromegcn_tpu")
 PORT_FILES = sorted((ROOT / "chromegcn_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -55,4 +58,8 @@ def test_entry_points_default_to_the_card(no_cuda):
         tft.chrome_train_step(state, x, x, graph, np.zeros((128, 4), np.float32))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tft.chrome_eval_step(state, x, x, graph, np.zeros((128, 4), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["-load_pretrained"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_finetune(Config())
     assert resolve_device("cpu") == torch.device("cpu")

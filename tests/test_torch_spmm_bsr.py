@@ -178,13 +178,30 @@ def test_missing_nvcc_raises(monkeypatch):
         _build.build("bsr_spmm")
 
 
-def test_library_path_keys_on_source_and_flags(monkeypatch):
-    """A change to the nvcc flags names another library, so a build made
-    with other flags is never loaded."""
+def test_library_path_keys_on_source_and_flags(monkeypatch, tmp_path):
+    """A change to the nvcc flags, to a kernel's source or to a header it
+    includes names another library, so a stale build is never loaded."""
     path = _build.library_path("bsr_spmm")
     assert path == _build.library_path("bsr_spmm")
+    assert [p.name for p in _build.sources("gcn_fused")] == ["gcn_fused.cu", "bsr_stream.cuh"]
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS[:-2])
     assert _build.library_path("bsr_spmm") != path
+    monkeypatch.undo()
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in _build.CSRC.iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build.library_path(name) for name in ("bsr_spmm", "gcn_fused")}
+    assert before["bsr_spmm"] == path  # the same bytes give the same name
+    header = csrc / "bsr_stream.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    for name in ("bsr_spmm", "gcn_fused"):  # both include the edited header
+        assert _build.library_path(name) != before[name], name
+    fused = _build.library_path("gcn_fused")
+    (csrc / "gcn_fused.cu").write_bytes((csrc / "gcn_fused.cu").read_bytes() + b"\n")
+    assert _build.library_path("gcn_fused") != fused
 
 
 def test_bsr_rejects_misaligned_graph():
