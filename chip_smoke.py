@@ -12,20 +12,24 @@ per phase:
 
 1. the card (nvidia-smi name and power limit) and torch/CUDA versions;
 2. the kernel builds, with nvcc's register/spill report;
-3. kernel B1 (bsr_spmm) against its plain PyTorch version on the card:
-   the chr1-scale bench graph's forward and transposed tilings at d 128 and
-   256, f32 and bf16 tiles, tile 256 with an integer threshold, an
-   all-strips tiling, and small graphs against a dense float64 product;
+3. kernel B1 (bsr_spmm, a row gather over each direction's edge form)
+   against its plain PyTorch version on the card: the chr1-scale bench
+   graph's forward and transposed directions at d 128 and 256, f32 and bf16,
+   tile 256 with an integer threshold, an all-strips tiling, a hub graph
+   (hubness 0.5, rows of up to ~170 entries), and small graphs against a
+   dense float64 product, one of them with a row of 1,500 entries; and that
+   each edge form holds exactly its blocks' nonzeros;
 4. the SpmmBSR gradient against the plain version's autograd;
 5. the unfused main path at bench.py's full width (N_PAD 50,176, d 128, 919
    classes, 2 layers, 2 strands, SGD lr 0.25): one kernel-path train step
    against one step of the plain COO path from the same weights, then
    5 train steps with dropout 0.2 and one eval step, counting kernel
    launches (8 B1 per train step, 4 per eval step);
-6. kernels B2 and B3 (gcn_fused, fwd and bwd) against their plain versions:
-   the bench graph's tilings at d 128, f32 and bf16 tiles, and a small graph
-   with an empty range of row blocks at d 32 for every tile height the
-   kernels are built for, against a dense float64 product;
+6. kernels B2 (gcn_fused) and B3 (gcn_fused_bwd) against their plain
+   versions: the bench graph at d 128, f32 and bf16, B3 also on the hub
+   graph and at d 192, and small graphs with an empty range of row blocks
+   at d 32 for every tile height B2 is built for, and B3 at the widest
+   width the fused layer admits, against a dense float64 product;
 7. the FusedGatedLayer gradients (dx, dw, db, du, dbu) against the plain
    version's autograd, at full width;
 8. the fused main path at full width (``fused="on"``): one train step
@@ -40,8 +44,9 @@ per phase:
    functions of a group timed in turns: B1, B2 and B3 per launch with CUDA
    events, their plain versions and a library yardstick the port never
    calls (torch.sparse.mm over CSR, composed with the epilogue's ops for
-   B2/B3); the bounds; the train and eval steps, unfused and fused, on the
-   host clock;
+   B2/B3); each kernel's share of its bound (what the data needs: the edge
+   list, the dense arrays, 2 nnz d operations plus the epilogue GEMM); the
+   train and eval steps, unfused and fused, on the host clock;
 11. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -75,7 +80,7 @@ TRAIN_STEPS = 5
 CLI_SPLITS = {"train": ("chr1", N_VALID, N_PAIRS, 0), "valid": ("chr2", 10_000, 50_000, 1),
               "test": ("chr3", 10_000, 50_000, 2)}
 CLI_EPOCHS = 2
-KERNELS = ("bsr_spmm", "gcn_fused")
+KERNELS = ("bsr_spmm", "gcn_fused", "gcn_fused_bwd")
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -160,12 +165,16 @@ def poison_allocator(shape):
     del t
 
 
-def compare(name, got, ref, scaled=False):
+def compare(name, got, ref, scaled=False, scale=None):
     """max |got - ref|, required within allclose(rtol, atol); ``scaled``
-    sets atol to ATOL times the reference's largest magnitude instead."""
+    sets atol to ATOL times the reference's largest magnitude instead, and
+    ``scale`` to ATOL times that scale."""
     err = (got - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    atol = ATOL * scale if scaled else ATOL
+    if scale is None:
+        scale = ref.abs().max().item()
+        atol = ATOL * scale if scaled else ATOL
+    else:
+        atol = ATOL * scale
     tol = atol + RTOL * scale
     ok = bool(torch.isfinite(got).all()) and torch.allclose(got, ref, rtol=RTOL, atol=atol)
     log(f"  {name}: max_abs_err {err:.3e} (allclose rtol {RTOL} atol {atol:.3e}; "
@@ -175,36 +184,75 @@ def compare(name, got, ref, scaled=False):
 
 
 def bound(m, d):
-    """Least time (ms) for one out = A @ x over the live blocks of ``m``: the
-    larger of the bytes (every block, index and x row read once, out written
-    once) over HBM bandwidth, and the operations the data needs (one
-    multiply-add per nonzero of the live blocks and column of x) over the
-    peak rate of the tiles' type. Returns (ms, 'bytes' or 'operations',
-    bytes, operations)."""
-    elems = m.nt * m.tile_r * m.tile_c + m.ns * 8 * m.tile_c
-    index_bytes = 4 * (m.nt + 3 * m.ns + 2 * (m.n_rows // m.tile_r + 1))
-    nbytes = elems * m.tiles.element_size() + 4 * d * (m.n_rows + m.n_cols) + index_bytes
-    nnz = int(torch.count_nonzero(m.tiles[:m.nt])) + int(torch.count_nonzero(m.strips[:m.ns]))
+    """Least time (ms) for one out = A @ x, whatever implements it: the
+    larger of the bytes the data needs (each nonzero's value and 4-byte
+    column, the n_rows + 1 row pointers, x read once, out written once)
+    over HBM bandwidth, and its operations (one multiply-add per nonzero and
+    column of x) over the peak rate of the values' type. The nonzeros are
+    those of ``m``'s live blocks, which its edge form holds. Returns (ms,
+    'bytes' or 'operations', bytes, operations)."""
+    nnz = m.nnz
+    nbytes = (nnz * (m.val.element_size() + 4) + 4 * (m.n_rows + 1)
+              + 4 * d * (m.n_rows + m.n_cols))
     flops = 2 * nnz * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[m.tiles.dtype] * 1e3
+    t_ops = flops / PEAK_FLOPS[m.val.dtype] * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, nbytes, flops
 
 
 def fused_bound(m, d, bwd):
     """Least time (ms) for one B2 (``bwd`` False: read x, w, b, write z) or
-    B3 (read ds, dx_dir, w, write h and dx) launch over ``m``: the stream's
-    bytes and operations as ``bound``, plus the dense arrays and the
+    B3 (read ds, dx_dir, w, write h and dx) launch over ``m``: the product's
+    bytes and operations as ``bound``, plus the other dense arrays and the
     epilogue GEMM (2 n_rows d^2 f32 operations). Returns (ms, 'bytes' or
     'operations', bytes, operations)."""
     _, _, nbytes, stream_flops = bound(m, d)
     nbytes += 4 * (d * d + m.n_rows * d * (2 if bwd else 0) + (0 if bwd else d))
     epi_flops = 2 * m.n_rows * d * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (stream_flops / PEAK_FLOPS[m.tiles.dtype] + epi_flops / PEAK_FLOPS[torch.float32]) * 1e3
+    t_ops = (stream_flops / PEAK_FLOPS[m.val.dtype] + epi_flops / PEAK_FLOPS[torch.float32]) * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, nbytes, stream_flops + epi_flops
+
+
+def block_form(m):
+    """(stored elements, bytes) of ``m``'s live tiles and strips with their
+    block indices: a record of the block operand's size, not a bound."""
+    elems = m.nt * m.tile_r * m.tile_c + m.ns * 8 * m.tile_c
+    index_bytes = 4 * (m.nt + 3 * m.ns + 2 * (m.n_rows // m.tile_r + 1))
+    return elems, elems * m.tiles.element_size() + index_bytes
+
+
+def check_csr_matches_blocks(name, m):
+    """On the card: every entry of ``m``'s edge form sits at its place in a
+    live tile or strip with the same value, columns ascend within each row,
+    and the blocks hold no other nonzero."""
+    rows = torch.repeat_interleave(
+        torch.arange(m.n_rows, device=m.col.device), m.row_ptr.diff().long())
+    cols = m.col.long()
+    ncb = m.n_cols // m.tile_c
+    key = (rows // m.tile_r) * ncb + cols // m.tile_c
+    tile_keys = m.tile_rb[:m.nt].long() * ncb + m.tile_cb[:m.nt].long()
+    ti = torch.searchsorted(tile_keys, key).clamp(max=max(m.nt - 1, 0))
+    in_tile = (tile_keys[ti] == key) if m.nt else torch.zeros_like(key, dtype=torch.bool)
+    skey = (rows // 8) * ncb + cols // m.tile_c
+    strip_keys = m.strip_rb[:m.ns].long() * ncb + m.strip_cb[:m.ns].long()
+    si = torch.searchsorted(strip_keys, skey).clamp(max=max(m.ns - 1, 0))
+    got = torch.where(
+        in_tile,
+        m.tiles[ti, rows % m.tile_r, cols % m.tile_c] if m.nt else m.val,
+        m.strips[si, rows % 8, cols % m.tile_c] if m.ns else m.val)
+    in_strip = (strip_keys[si] == skey) if m.ns else torch.zeros_like(in_tile)
+    same_row = rows[1:] == rows[:-1]
+    blocks_nnz = (int(torch.count_nonzero(m.tiles[:m.nt]))
+                  + int(torch.count_nonzero(m.strips[:m.ns])))
+    ok = (bool((in_tile | in_strip).all()) and torch.equal(got, m.val)
+          and bool((cols[1:][same_row] > cols[:-1][same_row]).all())
+          and blocks_nnz == m.nnz and int(m.row_ptr[-1]) == m.nnz)
+    log(f"  {name}: edge form {m.nnz} entries = the blocks' {blocks_nnz} nonzeros, "
+        f"value for value {'ok' if ok else 'MISMATCH'}")
+    require(ok, f"{name}: the edge form differs from its blocks")
 
 
 def csr_of(graph, transpose=False):
@@ -333,12 +381,27 @@ def main():
     log(f"[2 build] {status} in {time.perf_counter() - t0:.1f} s")
     for name, build_log in build_logs.items():
         for line in (build_log or "").splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {name}: {line.strip()}")
     fused_lib = gcn_fused._kernel_lib()
     for tile, d in ((32, 32), (64, 128), (128, 128), (128, 192)):
         require(fused_lib.gcn_fused_smem_bytes(tile, d) == gcn_fused.smem_bytes(tile, d),
                 f"fused_fits' shared-memory plan differs from the kernel's at tile {tile}, d {d}")
+    # B3's own plan fits at every (tile, d) fused_fits admits, and is the
+    # plan its wrapper checks
+    bwd_lib = gcn_fused._bwd_kernel_lib()
+    admitted = {tile: [d for d in range(4, 4097, 4)
+                       if gcn_fused.smem_bytes(tile, d) <= gcn_fused.SMEM_LIMIT]
+                for tile in gcn_fused.FUSED_TILE_ROWS}
+    widest = max(max(ds) for ds in admitted.values())
+    for tile, widths in admitted.items():
+        for d in widths:
+            plan = bwd_lib.gcn_fused_bwd_smem_bytes(d)
+            require(plan == gcn_fused.bwd_smem_bytes(d) <= gcn_fused.SMEM_LIMIT,
+                    f"B3's plan at tile {tile}, d {d} ({plan} bytes) does not fit")
+    log(f"  B3 plan fits every width fused_fits admits: d <= "
+        f"{', '.join(f'{max(w)} at tile {t}' for t, w in admitted.items())}; "
+        f"{gcn_fused.bwd_smem_bytes(widest)} bytes at d {widest}")
 
     gen = torch.Generator(device=cuda).manual_seed(0)
 
@@ -350,18 +413,32 @@ def main():
     s, r, v = make_hic_edges(N_VALID, N_PAIRS, seed=0)
     graph = build_chrom_graph("hic", n_valid=N_VALID, n_pad=N_PAD, hic_edges=(s, r, v),
                               device=cuda)
+    hub_graph = build_chrom_graph(
+        "hic", n_valid=N_VALID, n_pad=N_PAD, device=cuda,
+        hic_edges=make_hic_edges(N_VALID, N_PAIRS, seed=0, hubness=0.5))
     ops = {
         "f32": bsr_from_graph(graph, device=cuda),
         "bf16": bsr_from_graph(graph, dtype="bfloat16", device=cuda),
         "tile256_min8": bsr_from_graph(graph, tile=256, min_edges_per_tile=8, device=cuda),
         "all_strips": bsr_from_graph(graph, min_edges_per_tile=10**9, device=cuda),
+        "hub": bsr_from_graph(hub_graph, device=cuda),
     }
     op = ops["f32"]
     acct = streamed_elements(op, d=D)["fwd"]
+    elems, block_bytes = block_form(op.fwd)
+    row_nnz = op.fwd.row_ptr.diff()
     log(f"[3 B1 vs plain] bench graph: {graph.n_edges} edges, N_PAD {graph.n_nodes}; "
         f"fwd nt {op.fwd.nt} ns {op.fwd.ns}, bwd nt {op.bwd.nt} ns {op.bwd.ns}; "
         f"streamed block elements {acct['block_elems']} per direction; "
+        f"{op.fwd.nnz} nonzeros per direction, {int(row_nnz.max())} at most in a row, "
+        f"{int((row_nnz == 0).sum())} empty rows; hub graph {hub_graph.n_edges} edges, "
+        f"{int(ops['hub'].fwd.row_ptr.diff().max())} at most in a row; "
         f"built in {time.perf_counter() - t0:.1f} s")
+    log(f"  block form (a record of the operand's size, not the bound): {elems} live "
+        f"block elements, {block_bytes / 1e6:.1f} MB with their indices, per direction")
+    for key, o in ops.items():
+        for direction in ("fwd", "bwd"):
+            check_csr_matches_blocks(f"{key} {direction}", getattr(o, direction))
     errs = {}
     for key, o in ops.items():
         for direction in ("fwd", "bwd"):
@@ -384,6 +461,22 @@ def main():
         ref = (to_dense(g).double() @ x.double()).float()
         poison_allocator((1024, 96))
         errs[f"dense.tile{tile}"] = compare(f"dense 1024 tile={tile} d=96", bsr_matmul(m, x), ref)
+    # one row of ~1,500 entries (~47 batches of 32 in the kernel's gather);
+    # atol of scale: f32 sums of 1,500 products against float64
+    rng = np.random.default_rng(1)
+    dense = (rng.random((2048, 2048)) < 0.01) * rng.random((2048, 2048))
+    dense[77, rng.choice(2048, 1500, replace=False)] = rng.random(1500) + 0.1
+    dense[1024:1152] = 0.0
+    g = from_dense(dense, device=cuda)
+    m = bsr_from_graph(g, min_edges_per_tile=4, device=cuda).fwd
+    require(int(m.row_ptr.diff().max()) >= 1000, "the long-row graph lost its long row")
+    check_csr_matches_blocks("long-row graph fwd", m)
+    x = randn(2048, D)
+    ref = (to_dense(g).double() @ x.double()).float()
+    poison_allocator((2048, D))
+    errs["long_row"] = compare(f"dense 2048, a row of {int(m.row_ptr.diff().max())} entries, "
+                               f"d={D} vs float64 (atol of scale)", bsr_matmul(m, x), ref,
+                               scaled=True)
     torch.cuda.synchronize()
 
     # ---- 4. SpmmBSR gradient ----
@@ -453,8 +546,9 @@ def main():
             "the unfused path launched a fused kernel")
 
     # ---- 6. B2 and B3 against their plain versions ----
-    log("[6 B2/B3 vs plain] bench graph d=128 (f32, bf16 tiles); dense 1024 graphs "
-        "with an empty range of row blocks, d=32")
+    log("[6 B2/B3 vs plain] bench graph d=128 (f32, bf16); B3 on the hub graph and at "
+        "d=192; dense 1024 graphs with an empty range of row blocks, d=32, and B3 at the "
+        f"widest admitted d={widest}")
     w, b = randn(D, D) / D ** 0.5, 0.1 * randn(D)
     errs_fused = {"gcn_fused_fwd": [], "gcn_fused_bwd": []}
     for key in ("f32", "bf16"):
@@ -469,6 +563,19 @@ def main():
         errs_fused["gcn_fused_bwd"].append(compare(f"B3 {key} h", h, h_ref))
         errs_fused["gcn_fused_bwd"].append(compare(f"B3 {key} dx (atol of scale)", dx, dx_ref,
                                                    scaled=True))
+    # B3 over the hub graph's rows of up to ~170 entries, and at d 192 (the
+    # widest tile 128 admits)
+    for key, d in (("hub", D), ("f32", 192)):
+        m = ops[key].bwd
+        ds, dx_dir = randn(N_PAD, d), randn(N_PAD, d)
+        wd = randn(d, d) / d ** 0.5
+        h_ref, dx_ref = fused_bwd_plain(m, ds, dx_dir, wd)
+        poison_allocator((2 * N_PAD, d))
+        h, dx = fused_bwd(m, ds, dx_dir, wd)
+        errs_fused["gcn_fused_bwd"].append(compare(f"B3 {key} d={d} h", h, h_ref))
+        errs_fused["gcn_fused_bwd"].append(compare(f"B3 {key} d={d} dx (atol of scale)", dx,
+                                                   dx_ref, scaled=True))
+    del ds, dx_dir, h, dx, h_ref, dx_ref
     # rows and columns 512-639 hold no edge: every tile height leaves at least
     # one row block empty in both directions (z = tanh(b), h = 0, dx = dx_dir)
     for tile in gcn_fused.FUSED_TILE_ROWS:
@@ -494,6 +601,19 @@ def main():
         errs_fused["gcn_fused_bwd"].append(compare(
             f"B3 dense tile={tile} dx vs float64", dx,
             (dx_dir.double() + h64 @ ws.double().T).float(), scaled=True))
+    # B3 at the widest width the fused layer admits (the smallest CTA rows)
+    d = widest
+    ds, dx_dir, ws = randn(1024, d), randn(1024, d), randn(d, d) / d ** 0.5
+    h64 = a64.T @ ds.double()
+    poison_allocator((2 * 1024, d))
+    h, dx = fused_bwd(o.bwd, ds, dx_dir, ws)
+    errs_fused["gcn_fused_bwd"].append(compare(f"B3 dense d={d} h vs float64", h, h64.float()))
+    # atol of the summed terms' magnitude: each dx entry sums 1,344 products
+    # in f32, whose rounding grows with the terms, not with the result
+    terms = (dx_dir.double().abs() + h64.abs() @ ws.double().abs().T).max().item()
+    errs_fused["gcn_fused_bwd"].append(compare(
+        f"B3 dense d={d} dx vs float64 (atol of the terms' scale)", dx,
+        (dx_dir.double() + h64 @ ws.double().T).float(), scale=terms))
     torch.cuda.synchronize()
 
     # ---- 7. FusedGatedLayer gradients ----
@@ -610,7 +730,7 @@ def main():
     errs["library"] = compare("torch.sparse.mm (CSR) vs kernel, fwd d=128",
                               torch.sparse.mm(adj_csr, x), bsr_matmul(op.fwd, x))
     # in turns, 5 loops each: median (min-max) ms per call
-    t = cuda_ms({
+    t = t_b1 = cuda_ms({
         "fwd": lambda: bsr_matmul(op.fwd, x),
         "bwd": lambda: bsr_matmul(op.bwd, x),
         "plain": lambda: bsr_matmul_plain(op.fwd, x),
@@ -621,29 +741,27 @@ def main():
     log(f"  B1 f32 d=128 ms/launch, median (min-max) of 5 loops of 20 in turns: "
         f"fwd {spread(t['fwd'])}; bwd {spread(t['bwd'])}; plain {spread(t['plain'])}; "
         f"torch.sparse.mm CSR {spread(t['library'])}")
-    log(f"  bound {b_ms:.4f} ms by {b_by} ({b_bytes / 1e6:.1f} MB of blocks, x and out; "
-        f"{b_flops / 1e9:.4f} GFLOP over the blocks' nonzeros); "
-        f"kernel at {100 * b_ms / t_fwd:.1f}% of it")
-    # the same product over the edges alone (CSR: value + column per edge,
-    # row pointers), the least any format could move and compute
-    e_bytes = 8 * ne + 4 * (N_PAD + 1) + 4 * D * 2 * N_PAD
-    e_ms = max(e_bytes / HBM_BYTES_PER_S, 2 * ne * D / PEAK_FLOPS[torch.float32]) * 1e3
-    log(f"  edge-form bound {e_ms:.4f} ms ({e_bytes / 1e6:.1f} MB, {2 * ne * D / 1e9:.4f} GFLOP); "
-        f"the blocks hold {op.fwd.nt * op.fwd.tile_r * op.fwd.tile_c + op.fwd.ns * 8 * op.fwd.tile_c} "
-        f"elements for {ne} edges")
-    for key, d in (("f32", 2 * D), ("bf16", D), ("bf16", 2 * D)):
+    shares = {"B1 f32 d=128": b_ms / t_fwd}
+    log(f"  bound {b_ms:.4f} ms by {b_by} ({b_bytes / 1e6:.1f} MB: {op.fwd.nnz} nonzeros' "
+        f"values and columns, row pointers, x and out; {b_flops / 1e9:.4f} GFLOP); kernel at "
+        f"{100 * shares['B1 f32 d=128']:.1f}% of it, torch.sparse.mm at {100 * b_ms / t_lib:.1f}%")
+    log(f"  block form (not the bound): {elems} live block elements, "
+        f"{block_bytes / 1e6:.1f} MB with their indices, for {ne} edges")
+    for key, d in (("f32", 2 * D), ("bf16", D), ("bf16", 2 * D), ("hub", D)):
         m = ops[key].fwd
         xd = randn(N_PAD, d)
         tk = cuda_ms({key: lambda: bsr_matmul(m, xd)})[key]
         bm, by, _, _ = bound(m, d)
+        shares[f"B1 {key} d={d}"] = bm / statistics.median(tk)
         log(f"  B1 fwd {key} d={d}: {spread(tk)} ms/launch; bound {bm:.4f} ms by {by} "
-            f"({100 * bm / statistics.median(tk):.1f}%)")
+            f"({100 * shares[f'B1 {key} d={d}']:.1f}%)")
     del xd
 
     # B2 and B3 at the main path's shapes; the yardstick composes
     # torch.sparse.mm (CSR) with the epilogue's ops, as no single call does both
     ds, dx_dir = randn(N_PAD, D), randn(N_PAD, D)
     adj_t_csr = csr_of(graph, transpose=True)
+    h_t = bsr_matmul(op.bwd, ds)  # B3's h: B1 over op.bwd is the same gather
     compare("library tanh(sparse.mm(A, x) @ w + b) vs B2",
             torch.tanh(torch.sparse.mm(adj_csr, x) @ w + b), fused_fwd(op.fwd, x, w, b))
     t = cuda_ms({
@@ -653,6 +771,7 @@ def main():
         "B3": lambda: fused_bwd(op.bwd, ds, dx_dir, w),
         "B3 plain": lambda: fused_bwd_plain(op.bwd, ds, dx_dir, w),
         "B3 library": lambda: torch.addmm(dx_dir, torch.sparse.mm(adj_t_csr, ds), w.T),
+        "B3 epilogue GEMM": lambda: torch.addmm(dx_dir, h_t, w.T),
     })
     fused_rows = {}
     for kernel, key, m, bwd in (("gcn_fused_fwd", "B2", op.fwd, False),
@@ -661,12 +780,19 @@ def main():
                                                                    f"{key} library"))
         fb_ms, fb_by, fb_bytes, fb_flops = fused_bound(m, D, bwd)
         fused_rows[kernel] = (ms, ms_plain, ms_lib, fb_ms, fb_by)
+        shares[key] = fb_ms / ms
         log(f"  {key} f32 d=128 ms/launch, median (min-max) of 5 loops of 20 in turns: "
             f"kernel {spread(t[key])}; plain {spread(t[f'{key} plain'])}; library "
             f"composition {spread(t[f'{key} library'])}; bound {fb_ms:.4f} ms by {fb_by} "
             f"({fb_bytes / 1e6:.1f} MB, {fb_flops / 1e9:.4f} GFLOP); kernel at "
-            f"{100 * fb_ms / ms:.1f}% of it")
-    del x, ds, dx_dir
+            f"{100 * shares[key]:.1f}% of it, library composition at "
+            f"{100 * fb_ms / ms_lib:.1f}%")
+    log(f"  B3's two halves apart: B1 over op.bwd (the same gather, writes h) "
+        f"{spread(t_b1['bwd'])}; the epilogue as one cuBLAS call, "
+        f"torch.addmm(dx_dir, h, w.T) in f32, {spread(t['B3 epilogue GEMM'])}")
+    del x, ds, dx_dir, h_t
+    # a share above 100% would mean the bound counts less than the work needs
+    require(all(v <= 1.0 for v in shares.values()), f"a share of bound above 100%: {shares}")
 
     state_p = new_state(0.2, "xla")
     steps = host_ms({
@@ -713,7 +839,7 @@ def main():
     }] + [{
         "name": kernel,
         "route": "cuda",
-        "source": "chromegcn_tpu_torch/csrc/gcn_fused.cu",
+        "source": source,
         "replaces": replaces,
         # the CLI's run (phase 9), the slice's main path
         "launches": cli_counts[kernel],
@@ -723,8 +849,11 @@ def main():
         "bound_ms": fused_rows[kernel][3],
         "bound_by": fused_rows[kernel][4],
         "library_ms": fused_rows[kernel][2],
-    } for kernel, replaces in (("gcn_fused_fwd", "chromegcn_tpu/ops/gcn_fused.py:85"),
-                               ("gcn_fused_bwd", "chromegcn_tpu/ops/gcn_fused.py:206"))]
+    } for kernel, source, replaces in (
+        ("gcn_fused_fwd", "chromegcn_tpu_torch/csrc/gcn_fused.cu",
+         "chromegcn_tpu/ops/gcn_fused.py:85"),
+        ("gcn_fused_bwd", "chromegcn_tpu_torch/csrc/gcn_fused_bwd.cu",
+         "chromegcn_tpu/ops/gcn_fused.py:206"))]
     log(f"[11 done] in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

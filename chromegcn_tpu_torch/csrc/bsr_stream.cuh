@@ -1,5 +1,6 @@
-// The block stream shared by the BSR kernels: one CTA's walk over the live
-// tiles and strips of one output row block, for one slice of DC columns.
+// The block stream of the fused forward kernel (gcn_fused.cu): one CTA's
+// walk over the live tiles and strips of one output row block, for one
+// slice of DC columns.
 //
 // A is one direction of a BSROperator (forward A, or A^T for the backward
 // pass): nt dense (TILE_R x 128) tiles, tile t adding
@@ -9,7 +10,7 @@
 // x is f32. bf16 tiles take x rounded to bf16 (round-to-nearest-even) and
 // accumulate in f32, as the TPU kernels do.
 //
-// The walk (used by bsr_spmm.cu and gcn_fused.cu):
+// The walk:
 // - Tiles: the CTA walks its row block's tiles through row pointers built on
 //   the host from the live count (padding tiles sit at block (0, 0) after
 //   the live ones and are never visited). Tile and x block are staged in

@@ -1,42 +1,37 @@
-// Fused gated-GCN layer kernels for Hopper: the block-sparse SpMM with the
-// layer's GEMM in its epilogue.
+// Fused gated-GCN layer, forward kernel for Hopper: the block-sparse SpMM
+// with the layer's GEMM in its epilogue. (The backward kernel, B3, is
+// gcn_fused_bwd.cu.)
 //
-// Replace the TPU kernels of chromegcn_tpu/ops/gcn_fused.py:
-// - forward (B2, _fused_fwd_call :85-203): z = tanh((A @ x) W + b). The
-//   block stream runs over op.fwd against x into an f32 accumulator, and the
-//   epilogue computes tanh(acc @ W + b) in the kernel (:149-162).
-// - backward (B3, _fused_bwd_call :206-315): h = A^T ds, the same stream
-//   over op.bwd, then dx = dx_dir + h W^T in the epilogue (:260-267). It
-//   writes both h and dx.
-// x / ds, dx_dir, W, b, z, h and dx are f32. f32 tiles run FFMA throughout
-// (the reference runs Precision.HIGHEST; plain TF32 would lose about three
-// digits). bf16 tiles take x rounded to bf16 in the stream, as bsr_spmm
-// does; the epilogue stays f32 in both modes.
+// Replaces the TPU kernel chromegcn_tpu/ops/gcn_fused.py::_fused_fwd_call
+// (B2, :85-203): z = tanh((A @ x) W + b). The block stream runs over op.fwd
+// against x into an f32 accumulator, and the epilogue computes
+// tanh(acc @ W + b) in the kernel (:149-162). x, W, b and z are f32. f32
+// tiles run FFMA throughout (the reference runs Precision.HIGHEST; plain
+// TF32 would lose about three digits). bf16 tiles take x rounded to bf16 in
+// the stream; the epilogue stays f32 in both modes.
 //
 // What bounds it on an H100 SXM. At the chr1-scale bench graph (N 50,176,
-// d 128) one forward launch reads the live blocks (~69 MB in f32), x
-// (25.7 MB) and W, and writes z (25.7 MB): ~120 MB, ~36 us at 3.35 TB/s.
-// Its operations are one multiply-add per nonzero and column plus the
-// epilogue GEMM, 2 nnz d + 2 N d^2 ~ 1.7 GFLOP, ~26 us of f32: bytes bound
-// it. The backward launch moves two more (N, d) arrays (~172 MB, ~51 us).
-// As in bsr_spmm, the kernel multiplies the zeros inside the blocks too,
-// and the epilogue GEMM runs on CUDA cores in FFMA.
+// d 128) the data needs the edge list (~2.8 MB), x (25.7 MB), W and z
+// (25.7 MB): ~54 MB, ~16 us at 3.35 TB/s. Its operations are one
+// multiply-add per nonzero and column plus the epilogue GEMM,
+// 2 nnz d + 2 N d^2 ~ 1.7 GFLOP, ~26 us of f32: operations bound it. This
+// kernel reads the live blocks instead (~69 MB in f32) and multiplies the
+// zeros inside them too, and the epilogue GEMM runs on CUDA cores in FFMA.
 //
 // What this design does about it:
 // - The epilogue needs whole rows: acc @ W mixes all d columns of a row. So
 //   each CTA owns one row block (tile_r rows) and all d columns. It walks
 //   the row block's tiles and strips once per 64-column slice
-//   (bsr_stream.cuh, the walk bsr_spmm uses) into a tile_r x d accumulator
-//   kept in shared memory, then runs the epilogue from there with W (or
-//   W^T) staged in 64 x 64 chunks, and writes each output row once. The
-//   (N, d) product A @ x never goes to device memory.
+//   (bsr_stream.cuh) into a tile_r x d accumulator kept in shared memory,
+//   then runs the epilogue from there with W staged in 64 x 64 chunks, and
+//   writes each output row once. The (N, d) product A @ x never goes to
+//   device memory.
 // - The accumulator takes tile_r x (d + 4) floats of shared memory beside
 //   the walk's staging buffers, so the tile heights and widths that fit
 //   are those whose plan stays within 227 KB (gcn_fused_smem_bytes;
 //   ops/gcn_fused.py:fused_fits mirrors it). At tile_r 128 that is d <= 192.
-// - A row block with no live blocks (padding rows included) gets z = tanh(b)
-//   forward, and h = 0, dx = dx_dir backward, as the reference's zero-filled
-//   accumulator gives.
+// - A row block with no live blocks (padding rows included) gets
+//   z = tanh(b), as the reference's zero-filled accumulator gives.
 // - One CTA per row block: no atomics, and each row's sums are taken in a
 //   fixed order.
 
@@ -46,7 +41,7 @@ namespace {
 
 using namespace bsr;
 
-constexpr int KC = 64;  // rows of W (W^T backward) staged per epilogue chunk
+constexpr int KC = 64;  // rows of W staged per epilogue chunk
 
 __host__ __device__ constexpr int padded_width(int d) { return (d + DC - 1) / DC * DC; }
 
@@ -55,17 +50,15 @@ size_t smem_bytes(int tile_r, int d) {
                           (size_t)tile_r * (padded_width(d) + 4));
 }
 
-// BWD false (B2): x is x, aux is the bias b, out is z; h is unused.
-// BWD true (B3):  x is ds, aux is dx_dir, h gets A^T ds, out is dx.
-template <typename T, int TILE_R, bool BWD>
+// z = tanh((A @ x) w + b) for one row block
+template <typename T, int TILE_R>
 __global__ void __launch_bounds__(NT) gcn_fused_kernel(
     const T* __restrict__ tiles, const int* __restrict__ tile_cb,
     const int* __restrict__ tile_ptr, const T* __restrict__ strips,
     const int* __restrict__ strip_rb, const int* __restrict__ strip_cb,
     const int* __restrict__ strip_ptr, const int* __restrict__ strip_order,
     const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ aux, float* __restrict__ h,
-    float* __restrict__ out, int d) {
+    const float* __restrict__ bias, float* __restrict__ out, int d) {
   constexpr int TM = TILE_R / 16;  // output rows per thread
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -82,15 +75,7 @@ __global__ void __launch_bounds__(NT) gcn_fused_kernel(
     stream_slice<T, TILE_R>(tiles, tile_cb, tile_ptr, strips, strip_rb, strip_cb,
                             strip_ptr, strip_order, x, d, rb, c0, smem, Acc + c0, lda);
 
-  if constexpr (BWD) {  // h = A^T ds is an output of its own
-    for (int i = tid; i < TILE_R * d / 4; i += NT) {
-      const int r = i / (d / 4), c = (i % (d / 4)) * 4;
-      *reinterpret_cast<float4*>(h + (row0 + r) * d + c) =
-          *reinterpret_cast<const float4*>(Acc + r * lda + c);
-    }
-  }
-
-  // ---- epilogue: out[rows, c0..c0+64) from Acc @ W (W^T), chunk by chunk ----
+  // ---- epilogue: out[rows, c0..c0+64) from Acc @ W, chunk by chunk ----
   float* Ws = smem;  // KC x DC chunk; the walk is done with its buffers
   for (int c0 = 0; c0 < dp; c0 += DC) {
     float acc[TM][4];
@@ -101,17 +86,11 @@ __global__ void __launch_bounds__(NT) gcn_fused_kernel(
 
     for (int k0 = 0; k0 < dp; k0 += KC) {
       __syncthreads();  // the previous chunk's compute is done with Ws
-      for (int i = tid; i < KC * DC; i += NT) {
+      for (int i = tid; i < KC * DC; i += NT) {  // Ws[kk][jj] = W[k0+kk][c0+jj]
+        const int kk = i / DC, jj = i % DC;
         float v = 0.f;
-        if constexpr (BWD) {  // Ws[kk][jj] = W^T[k0+kk][c0+jj] = W[c0+jj][k0+kk]
-          const int jj = i / KC, kk = i % KC;
-          if (k0 + kk < d && c0 + jj < d) v = __ldg(w + (size_t)(c0 + jj) * d + k0 + kk);
-          Ws[kk * DC + jj] = v;
-        } else {  // Ws[kk][jj] = W[k0+kk][c0+jj]
-          const int kk = i / DC, jj = i % DC;
-          if (k0 + kk < d && c0 + jj < d) v = __ldg(w + (size_t)(k0 + kk) * d + c0 + jj);
-          Ws[kk * DC + jj] = v;
-        }
+        if (k0 + kk < d && c0 + jj < d) v = __ldg(w + (size_t)(k0 + kk) * d + c0 + jj);
+        Ws[kk * DC + jj] = v;
       }
       __syncthreads();
 #pragma unroll 2
@@ -141,53 +120,46 @@ __global__ void __launch_bounds__(NT) gcn_fused_kernel(
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         float* o = out + (row0 + ty * TM + i) * d + c;
-        float4 v;
-        if constexpr (BWD) {  // dx = dx_dir + h W^T
-          const float4 dd = load4(aux + (row0 + ty * TM + i) * d + c);
-          v = make_float4(dd.x + acc[i][0], dd.y + acc[i][1], dd.z + acc[i][2],
-                          dd.w + acc[i][3]);
-        } else {  // z = tanh(acc W + b)
-          const float4 bb = load4(aux + c);
-          v = make_float4(tanhf(acc[i][0] + bb.x), tanhf(acc[i][1] + bb.y),
-                          tanhf(acc[i][2] + bb.z), tanhf(acc[i][3] + bb.w));
-        }
-        *reinterpret_cast<float4*>(o) = v;
+        const float4 bb = load4(bias + c);  // z = tanh(acc W + b)
+        *reinterpret_cast<float4*>(o) =
+            make_float4(tanhf(acc[i][0] + bb.x), tanhf(acc[i][1] + bb.y),
+                        tanhf(acc[i][2] + bb.z), tanhf(acc[i][3] + bb.w));
       }
     }
   }
 }
 
-template <typename T, int TILE_R, bool BWD>
+template <typename T, int TILE_R>
 cudaError_t launch(const void* tiles, const int* tile_cb, const int* tile_ptr,
                    const void* strips, const int* strip_rb, const int* strip_cb,
                    const int* strip_ptr, const int* strip_order, const float* x,
-                   const float* w, const float* aux, float* h, float* out,
-                   int n_row_blocks, int d, cudaStream_t stream) {
+                   const float* w, const float* b, float* out, int n_row_blocks, int d,
+                   cudaStream_t stream) {
   const size_t smem = smem_bytes(TILE_R, d);
   // above 48 KB only after this call; a plan over the card's limit fails here
-  cudaError_t err = cudaFuncSetAttribute(gcn_fused_kernel<T, TILE_R, BWD>,
+  cudaError_t err = cudaFuncSetAttribute(gcn_fused_kernel<T, TILE_R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  gcn_fused_kernel<T, TILE_R, BWD><<<n_row_blocks, NT, smem, stream>>>(
+  gcn_fused_kernel<T, TILE_R><<<n_row_blocks, NT, smem, stream>>>(
       static_cast<const T*>(tiles), tile_cb, tile_ptr, static_cast<const T*>(strips),
-      strip_rb, strip_cb, strip_ptr, strip_order, x, w, aux, h, out, d);
+      strip_rb, strip_cb, strip_ptr, strip_order, x, w, b, out, d);
   return cudaGetLastError();
 }
 
-template <typename T, bool BWD>
+template <typename T>
 int dispatch(const void* tiles, const int* tile_cb, const int* tile_ptr,
              const void* strips, const int* strip_rb, const int* strip_cb,
              const int* strip_ptr, const int* strip_order, const float* x,
-             const float* w, const float* aux, float* h, float* out,
-             int n_row_blocks, int tile_r, int d, void* stream) {
+             const float* w, const float* b, float* out, int n_row_blocks, int tile_r,
+             int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 0 || d % 4 != 0) return (int)cudaErrorInvalidValue;
-#define FUSED_CASE(R)                                                             \
-  case R:                                                                         \
-    return (int)launch<T, R, BWD>(tiles, tile_cb, tile_ptr, strips, strip_rb,     \
-                                  strip_cb, strip_ptr, strip_order, x, w, aux, h, \
-                                  out, n_row_blocks, d, s);
+#define FUSED_CASE(R)                                                               \
+  case R:                                                                           \
+    return (int)launch<T, R>(tiles, tile_cb, tile_ptr, strips, strip_rb, strip_cb,  \
+                             strip_ptr, strip_order, x, w, b, out, n_row_blocks, d, \
+                             s);
   switch (tile_r) {
     FUSED_CASE(32)
     FUSED_CASE(64)
@@ -203,8 +175,8 @@ int dispatch(const void* tiles, const int* tile_cb, const int* tile_ptr,
 extern "C" {
 
 // Each entry returns cudaGetLastError() after the launch (0 on success).
-// The block arrays are bsr_spmm's (tile_ptr / strip_ptr: n_row_blocks + 1
-// offsets over the live blocks; strip_order grouped by column block).
+// tile_ptr / strip_ptr hold n_row_blocks + 1 offsets over the live blocks;
+// strip_order lists each row block's live strips grouped by column block.
 
 // z = tanh((A @ x) w + b); x (n_cols, d), w (d, d), b (d,), z (n_rows, d).
 int gcn_fused_fwd_f32(const void* tiles, const int* tile_cb, const int* tile_ptr,
@@ -212,9 +184,9 @@ int gcn_fused_fwd_f32(const void* tiles, const int* tile_cb, const int* tile_ptr
                       const int* strip_ptr, const int* strip_order, const float* x,
                       const float* w, const float* b, float* z, int n_row_blocks,
                       int tile_r, int d, void* stream) {
-  return dispatch<float, false>(tiles, tile_cb, tile_ptr, strips, strip_rb, strip_cb,
-                                strip_ptr, strip_order, x, w, b, nullptr, z,
-                                n_row_blocks, tile_r, d, stream);
+  return dispatch<float>(tiles, tile_cb, tile_ptr, strips, strip_rb, strip_cb,
+                         strip_ptr, strip_order, x, w, b, z, n_row_blocks, tile_r, d,
+                         stream);
 }
 
 int gcn_fused_fwd_bf16(const void* tiles, const int* tile_cb, const int* tile_ptr,
@@ -222,31 +194,9 @@ int gcn_fused_fwd_bf16(const void* tiles, const int* tile_cb, const int* tile_pt
                        const int* strip_ptr, const int* strip_order, const float* x,
                        const float* w, const float* b, float* z, int n_row_blocks,
                        int tile_r, int d, void* stream) {
-  return dispatch<__nv_bfloat16, false>(tiles, tile_cb, tile_ptr, strips, strip_rb,
-                                        strip_cb, strip_ptr, strip_order, x, w, b,
-                                        nullptr, z, n_row_blocks, tile_r, d, stream);
-}
-
-// h = A^T ds over op.bwd's blocks, dx = dx_dir + h w^T; ds (n_cols, d),
-// dx_dir, h, dx (n_rows, d), w (d, d).
-int gcn_fused_bwd_f32(const void* tiles, const int* tile_cb, const int* tile_ptr,
-                      const void* strips, const int* strip_rb, const int* strip_cb,
-                      const int* strip_ptr, const int* strip_order, const float* ds,
-                      const float* dx_dir, const float* w, float* h, float* dx,
-                      int n_row_blocks, int tile_r, int d, void* stream) {
-  return dispatch<float, true>(tiles, tile_cb, tile_ptr, strips, strip_rb, strip_cb,
-                               strip_ptr, strip_order, ds, w, dx_dir, h, dx,
-                               n_row_blocks, tile_r, d, stream);
-}
-
-int gcn_fused_bwd_bf16(const void* tiles, const int* tile_cb, const int* tile_ptr,
-                       const void* strips, const int* strip_rb, const int* strip_cb,
-                       const int* strip_ptr, const int* strip_order, const float* ds,
-                       const float* dx_dir, const float* w, float* h, float* dx,
-                       int n_row_blocks, int tile_r, int d, void* stream) {
-  return dispatch<__nv_bfloat16, true>(tiles, tile_cb, tile_ptr, strips, strip_rb,
-                                       strip_cb, strip_ptr, strip_order, ds, w, dx_dir,
-                                       h, dx, n_row_blocks, tile_r, d, stream);
+  return dispatch<__nv_bfloat16>(tiles, tile_cb, tile_ptr, strips, strip_rb, strip_cb,
+                                 strip_ptr, strip_order, x, w, b, z, n_row_blocks,
+                                 tile_r, d, stream);
 }
 
 // Dynamic shared memory (bytes) of one launch at this tile height and width.

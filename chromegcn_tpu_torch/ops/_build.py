@@ -1,13 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel library is one ``csrc/<name>.cu`` with a plain C interface
-(``bsr_spmm``, ``gcn_fused``); it may include headers from ``csrc/``. It is
-compiled with ``nvcc`` for ``sm_90a`` (Hopper) into a shared library under
-``build/kernels/`` at the repository root, at first use, and loaded with
-ctypes. The library's file name carries a hash of its source, of every
-``csrc/`` header it includes, and of the nvcc flags, so an edited kernel,
-header or flag is rebuilt and a stale build is never loaded. Only the
-sources in this package are built.
+(``bsr_spmm``, ``gcn_fused``, ``gcn_fused_bwd``); it may include headers
+from ``csrc/``. It is compiled with ``nvcc`` for ``sm_90a`` (Hopper) into a
+shared library under ``build/kernels/`` at the repository root, at first
+use, and loaded with ctypes. The library's file name carries a hash of its
+source, of every ``csrc/`` header it includes, and of the nvcc flags, so an
+edited kernel, header or flag is rebuilt and a stale build is never loaded.
+Only the sources in this package are built.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc``.

@@ -2,24 +2,27 @@
 
 The unfused layer (models/chrome.py) runs ``z = tanh(A (x W) + b)``, the
 gate ``g = sigmoid(z u + bu)`` and the lerp ``x_next = (1 - g) x + g z``.
-This module computes the same layer with two hand-written kernels
-(``csrc/gcn_fused.cu``), which replace the TPU kernels of the reference:
+This module computes the same layer with two hand-written kernels, which
+replace the TPU kernels of the reference:
 
-- ``fused_fwd`` (B2, ``_fused_fwd_call``): ``z = tanh((A @ x) W + b)``. By
-  associativity A (x W) == (A x) W, so the block stream runs against x
-  directly and the GEMM, bias and tanh are the kernel's epilogue;
-- ``fused_bwd`` (B3, ``_fused_bwd_call``): ``h = A^T ds`` over the
-  transposed tiling, then ``dx = dx_dir + h W^T`` in the epilogue.
+- ``fused_fwd`` (B2, ``_fused_fwd_call``; ``csrc/gcn_fused.cu``):
+  ``z = tanh((A @ x) W + b)``. By associativity A (x W) == (A x) W, so the
+  block stream runs against x directly and the GEMM, bias and tanh are the
+  kernel's epilogue;
+- ``fused_bwd`` (B3, ``_fused_bwd_call``; ``csrc/gcn_fused_bwd.cu``):
+  ``h = A^T ds`` gathered over the transposed direction's edge form, then
+  ``dx = dx_dir + h W^T`` on tensor cores in 3xTF32.
 
 The gate, the lerp and the cotangent algebra of the backward pass (ds, db,
 du, dbu, dx_dir, and dW = x^T h after B3) stay plain torch, as they stay in
 XLA in the reference (:341-364). The operator gets no gradient.
 
-``fused_fits`` is the kernels' own limit: the tile heights they are built
-for, and a shared-memory plan (a tile_r x d accumulator beside the block
-stream's staging buffers) that fits one CTA on the card. The reference's
-VMEM budget does not apply here. Where it says no, the model takes the
-unfused path, as the reference does.
+``fused_fits`` is B2's limit: the tile heights it is built for, and a
+shared-memory plan (a tile_r x d accumulator beside the block stream's
+staging buffers) that fits one CTA on the card. B3 reads no tiles; its plan
+(``bwd_smem_bytes``) fits at every width ``fused_fits`` admits. The
+reference's VMEM budget does not apply here. Where ``fused_fits`` says no,
+the model takes the unfused path, as the reference does.
 """
 
 from __future__ import annotations
@@ -31,21 +34,36 @@ import torch
 
 from chromegcn_tpu_torch.ops import _build
 from chromegcn_tpu_torch.ops.spmm_bsr import (
-    STRIP_R, TILE_C, BSRMatrix, BSROperator, _check_kernel_args, bsr_matmul_plain,
+    STRIP_R, TILE_C, BSRMatrix, BSROperator, _check_csr, _check_dense, _check_x,
+    bsr_matmul_plain,
 )
 
 FUSED_TILE_ROWS = (32, 64, 128)  # tile heights csrc/gcn_fused.cu is built for
 SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use on an H100
 _SLICE = 64  # output columns per slice of the block stream (bsr_stream.cuh DC)
+# B3's W chunk (csrc/gcn_fused_bwd.cu NC x KC, rows padded to KC + 4 floats)
+_BWD_NC, _BWD_KC = 64, 32
 
 
 def smem_bytes(tile_r: int, d: int) -> int:
-    """Shared memory of one fused-kernel CTA: the block stream's staged tile
+    """Shared memory of one B2 CTA: the block stream's staged tile
     (tile_r x 132), x block (128 x 64) and strip (8 x 128), and the
     tile_r x (d padded to 64, + 4) accumulator (csrc/gcn_fused.cu)."""
     width = -(-d // _SLICE) * _SLICE
     floats = tile_r * (TILE_C + 4) + TILE_C * _SLICE + STRIP_R * TILE_C + tile_r * (width + 4)
     return 4 * floats
+
+
+def bwd_rows_per_cta(d: int) -> int:
+    """Rows of h one B3 CTA gathers and multiplies at width ``d``."""
+    return 64 if d <= 256 else (32 if d <= 640 else 16)
+
+
+def bwd_smem_bytes(d: int) -> int:
+    """Shared memory of one B3 CTA: its rows of h, (d padded to 32, + 4)
+    floats each, and two W chunks (csrc/gcn_fused_bwd.cu)."""
+    k_extent = -(-d // _BWD_KC) * _BWD_KC
+    return 4 * (bwd_rows_per_cta(d) * (k_extent + 4) + 2 * _BWD_NC * (_BWD_KC + 4))
 
 
 def _matrix_fits(m: BSRMatrix, d: int) -> bool:
@@ -82,40 +100,51 @@ def fused_bwd_plain(
 
 _PTR = ctypes.c_void_p
 _FWD_ARGTYPES = [_PTR] * 12 + [ctypes.c_int] * 3 + [_PTR]
-_BWD_ARGTYPES = [_PTR] * 13 + [ctypes.c_int] * 3 + [_PTR]
+_BWD_ARGTYPES = [_PTR] * 8 + [ctypes.c_int] * 2 + [_PTR]
 
 
 def _kernel_lib() -> ctypes.CDLL:
+    """B2's library (csrc/gcn_fused.cu)."""
     lib = _build.load("gcn_fused")
     for fn in (lib.gcn_fused_fwd_f32, lib.gcn_fused_fwd_bf16):
         fn.argtypes, fn.restype = _FWD_ARGTYPES, ctypes.c_int
-    for fn in (lib.gcn_fused_bwd_f32, lib.gcn_fused_bwd_bf16):
-        fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
     lib.gcn_fused_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.gcn_fused_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def _check_fused_args(m: BSRMatrix, x: torch.Tensor, **dense: Tuple[torch.Tensor, tuple]) -> None:
-    _check_kernel_args(m, x)
-    d = x.shape[1]
+def _bwd_kernel_lib() -> ctypes.CDLL:
+    """B3's library (csrc/gcn_fused_bwd.cu)."""
+    lib = _build.load("gcn_fused_bwd")
+    for fn in (lib.gcn_fused_bwd_f32, lib.gcn_fused_bwd_bf16):
+        fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    lib.gcn_fused_bwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.gcn_fused_bwd_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+_BLOCK_FIELDS = ("tiles", "tile_cb", "tile_ptr", "strips", "strip_rb", "strip_cb",
+                 "strip_ptr", "strip_order")
+
+
+def _check_blocks(m: BSRMatrix, x: torch.Tensor) -> int:
+    """B2's checks of the block arrays it walks and of its plan; returns d."""
+    d = _check_x(m, x)
+    if m.tiles.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"B2 takes float32 or bfloat16 tiles, got {m.tiles.dtype}")
     if not _matrix_fits(m, d):
         raise NotImplementedError(
-            f"fused kernels take tile_c={TILE_C}, tile_r in {FUSED_TILE_ROWS} and a "
+            f"B2 takes tile_c={TILE_C}, tile_r in {FUSED_TILE_ROWS} and a "
             f"width whose plan fits {SMEM_LIMIT} bytes of shared memory; got "
             f"tile_r={m.tile_r}, d={d} ({smem_bytes(m.tile_r, d)} bytes)"
         )
-    for name, (t, shape) in dense.items():
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be float32 {shape}, got {t.dtype} {tuple(t.shape)}")
-        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned on {x.device}")
-
-
-def _block_ptrs(m: BSRMatrix) -> list:
-    return [m.tiles.data_ptr(), m.tile_cb.data_ptr(), m.tile_ptr.data_ptr(),
-            m.strips.data_ptr(), m.strip_rb.data_ptr(), m.strip_cb.data_ptr(),
-            m.strip_ptr.data_ptr(), m.strip_order.data_ptr()]
+    for name in _BLOCK_FIELDS:
+        t = getattr(m, name)
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"BSRMatrix.{name} must be contiguous on {x.device}")
+        if t.numel() and t.data_ptr() % 16:
+            raise ValueError(f"BSRMatrix.{name} is not 16-byte aligned")
+    return d
 
 
 def fused_fwd(m: BSRMatrix, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -126,14 +155,16 @@ def fused_fwd(m: BSRMatrix, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -
         return fused_fwd_plain(m, x, w, b)
     if x.device.type != "cuda":
         raise ValueError(f"fused_fwd runs on cuda or cpu tensors, got {x.device}")
-    d = x.shape[1] if x.dim() == 2 else -1
-    _check_fused_args(m, x, w=(w, (d, d)), b=(b, (d,)))
+    d = _check_blocks(m, x)
+    _check_dense("w", w, (d, d), x.device)
+    _check_dense("b", b, (d,), x.device)
     lib = _kernel_lib()
     entry = lib.gcn_fused_fwd_bf16 if m.tiles.dtype == torch.bfloat16 else lib.gcn_fused_fwd_f32
     z = torch.empty((m.n_rows, d), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         code = entry(
-            *_block_ptrs(m), x.data_ptr(), w.data_ptr(), b.data_ptr(), z.data_ptr(),
+            *(getattr(m, name).data_ptr() for name in _BLOCK_FIELDS),
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), z.data_ptr(),
             m.n_rows // m.tile_r, m.tile_r, d,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
@@ -145,23 +176,30 @@ def fused_fwd(m: BSRMatrix, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -
 def fused_bwd(
     m: BSRMatrix, ds: torch.Tensor, dx_dir: torch.Tensor, w: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(h, dx) = (A^T ds, dx_dir + h w^T), ``m`` the transposed tiling. A
-    CUDA tensor goes through kernel B3 or raises; a CPU tensor takes the
-    plain version. Counts each launch in ``_build.LAUNCHES['gcn_fused_bwd']``."""
+    """(h, dx) = (A^T ds, dx_dir + h w^T), ``m`` the transposed direction.
+    A CUDA tensor goes through kernel B3 (over ``m``'s edge form) or raises;
+    a CPU tensor takes the plain version. Counts each launch in
+    ``_build.LAUNCHES['gcn_fused_bwd']``."""
     if ds.device.type == "cpu":
         return fused_bwd_plain(m, ds, dx_dir, w)
     if ds.device.type != "cuda":
         raise ValueError(f"fused_bwd runs on cuda or cpu tensors, got {ds.device}")
-    d = ds.shape[1] if ds.dim() == 2 else -1
-    _check_fused_args(m, ds, w=(w, (d, d)), dx_dir=(dx_dir, (m.n_rows, d)))
-    lib = _kernel_lib()
-    entry = lib.gcn_fused_bwd_bf16 if m.tiles.dtype == torch.bfloat16 else lib.gcn_fused_bwd_f32
+    d = _check_csr(m, ds)
+    if bwd_smem_bytes(d) > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"B3's plan at d={d} takes {bwd_smem_bytes(d)} bytes of shared memory, "
+            f"over {SMEM_LIMIT}"
+        )
+    _check_dense("w", w, (d, d), ds.device)
+    _check_dense("dx_dir", dx_dir, (m.n_rows, d), ds.device)
+    lib = _bwd_kernel_lib()
+    entry = lib.gcn_fused_bwd_bf16 if m.val.dtype == torch.bfloat16 else lib.gcn_fused_bwd_f32
     h = torch.empty((m.n_rows, d), dtype=torch.float32, device=ds.device)
     dx = torch.empty_like(h)
     with torch.cuda.device(ds.device):
         code = entry(
-            *_block_ptrs(m), ds.data_ptr(), dx_dir.data_ptr(), w.data_ptr(),
-            h.data_ptr(), dx.data_ptr(), m.n_rows // m.tile_r, m.tile_r, d,
+            m.row_ptr.data_ptr(), m.col.data_ptr(), m.val.data_ptr(), ds.data_ptr(),
+            dx_dir.data_ptr(), w.data_ptr(), h.data_ptr(), dx.data_ptr(), m.n_rows, d,
             torch.cuda.current_stream(ds.device).cuda_stream,
         )
     _build.check(lib, "gcn_fused_bwd", code)

@@ -1,8 +1,8 @@
-"""Block-sparse SpMM (port of chromegcn_tpu/ops/spmm_pallas.py).
+"""Sparse SpMM over the block-sparse operator (port of
+chromegcn_tpu/ops/spmm_pallas.py).
 
 The adjacency is converted on the host into two dense block populations,
-consumed by one kernel (``csrc/bsr_spmm.cu``, which replaces the TPU kernel
-``_bsr_matmul``):
+as the reference builds them:
 
 - **tiles**: (tile_r x 128) dense blocks for every region with enough edges;
 - **strips**: (8 x 128) mini-blocks for the stragglers. Every edge not in a
@@ -11,9 +11,16 @@ consumed by one kernel (``csrc/bsr_spmm.cu``, which replaces the TPU kernel
 The host arrays (``tiles``, ``tile_rb``, ``tile_cb``, ``strips``,
 ``strip_rb``, ``strip_cb``, ``live``) equal the JAX builder's, padding
 included: block counts are bucketed with zero blocks at (0, 0). The port
-adds what the card's kernel walks instead: the live counts ``nt``/``ns``,
-per-row-block pointers built from them (so padding is never visited), and
-a strip order that groups each row block's strips by column block.
+adds the live counts ``nt``/``ns``, per-row-block pointers built from them
+(so padding is never visited) and a strip order that groups each row
+block's strips by column block, which the fused forward kernel B2 walks.
+
+Each direction also carries its **edge form** (CSR: ``row_ptr``, ``col``,
+``val``), built from exactly the nonzeros written into the live blocks.
+The card's SpMM kernel (``csrc/bsr_spmm.cu``, which replaces the TPU kernel
+``_bsr_matmul``) and the fused backward kernel B3 gather over it: the
+blocks hold ~50 stored elements per edge on a Hi-C graph, and the product
+is bound by the bytes it moves. The plain versions read the blocks.
 
 The tile/strip split constants are the reference's, kept so the arrays
 match; a split tuned for the H100 is a separate, later option. The card
@@ -47,7 +54,6 @@ AUTO_BREAKEVEN_STRIPS = 6
 # the reference's grid-step widths; they set the bucketed ``live`` counts
 TILES_PER_STEP = 8
 STRIPS_PER_STEP = 32
-KERNEL_TILE_ROWS = (32, 64, 128, 256)  # tile heights the CUDA kernel is built for
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -66,6 +72,9 @@ class BSRMatrix:
     tile_ptr: torch.Tensor   # (n_rows/tile_r + 1,) int32 live tiles of row block b: [ptr[b], ptr[b+1])
     strip_ptr: torch.Tensor  # (n_rows/tile_r + 1,) int32 same for the live strips
     strip_order: torch.Tensor  # (ns,) int32 live strips, by row block, then col block
+    row_ptr: torch.Tensor    # (n_rows + 1,) int32 CSR: row i's entries are [row_ptr[i], row_ptr[i+1])
+    col: torch.Tensor        # (nnz,) int32 column of each entry, ascending within a row
+    val: torch.Tensor        # (nnz,) value of each entry, in the tiles' dtype
     nt: int                  # live tiles (the rest is padding)
     ns: int                  # live strips
     n_rows: int
@@ -76,6 +85,11 @@ class BSRMatrix:
     @property
     def n_nodes(self) -> int:
         return self.n_rows
+
+    @property
+    def nnz(self) -> int:
+        """Stored nonzeros of the live blocks (the edge form's entries)."""
+        return self.col.numel()
 
     def to(self, device: DeviceLike) -> "BSRMatrix":
         return dataclasses.replace(self, **{
@@ -192,6 +206,17 @@ def _build_one_direction(
         (strip_rb[:ns], strip_cb[:ns], strip_rb[:ns] // strips_per_rb)
     )
 
+    # the edge form: the nonzeros of the live blocks, by row then column
+    t_i, t_r, t_c = np.nonzero(tiles[:nt])
+    s_i, s_r, s_c = np.nonzero(strips[:ns])
+    rows = np.concatenate([tile_rb[t_i].astype(np.int64) * tile_r + t_r,
+                           strip_rb[s_i].astype(np.int64) * STRIP_R + s_r])
+    cols = np.concatenate([tile_cb[t_i].astype(np.int64) * tile_c + t_c,
+                           strip_cb[s_i].astype(np.int64) * tile_c + s_c])
+    nz_vals = np.concatenate([tiles[t_i, t_r, t_c], strips[s_i, s_r, s_c]])
+    order = np.lexsort((cols, rows))
+    row_ptr = np.searchsorted(rows[order], np.arange(n_rows + 1))
+
     def dev(a: np.ndarray, dt=None) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
         return t.to(device=device, dtype=dt) if dt is not None else t.to(device)
@@ -207,6 +232,10 @@ def _build_one_direction(
         tile_ptr=dev(tile_ptr.astype(np.int32)),
         strip_ptr=dev(strip_ptr.astype(np.int32)),
         strip_order=dev(strip_order.astype(np.int32)),
+        row_ptr=dev(row_ptr.astype(np.int32)),
+        col=dev(cols[order].astype(np.int32)),
+        # the summed f32 value, cast after the sum as the tiles are
+        val=dev(nz_vals[order], dtype),
         nt=nt,
         ns=ns,
         n_rows=n_rows,
@@ -318,7 +347,7 @@ def bsr_matmul_plain(m: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-_ENTRY_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ENTRY_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -329,53 +358,58 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_kernel_args(m: BSRMatrix, x: torch.Tensor) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"bsr_matmul takes float32 x, got {x.dtype}")
-    if x.dim() != 2 or not x.is_contiguous():
-        raise ValueError("bsr_matmul takes a contiguous 2-D x")
-    if x.shape[0] != m.n_cols:
-        raise ValueError(f"x has {x.shape[0]} rows, A has {m.n_cols} columns")
+def _check_dense(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    """A kernel's f32 dense operand: the shape given, contiguous, 16-byte
+    aligned (float4 loads), on ``device``."""
+    if t.dtype != torch.float32 or tuple(t.shape) != shape:
+        raise ValueError(f"{name} must be float32 {shape}, got {t.dtype} {tuple(t.shape)}")
+    if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned on {device}")
+
+
+def _check_x(m: BSRMatrix, x: torch.Tensor) -> int:
+    """The checks every kernel makes of its (n_cols, d) input; returns d."""
+    if x.dim() != 2 or x.shape[0] != m.n_cols:
+        raise ValueError(f"x {tuple(x.shape)} does not match A's {m.n_cols} columns")
     d = x.shape[1]
     if d == 0 or d % 4 != 0:
-        raise ValueError(f"bsr_matmul needs d a positive multiple of 4, got {d}")
-    if m.tile_c != TILE_C or m.tile_r not in KERNEL_TILE_ROWS:
-        raise NotImplementedError(
-            f"kernel built for tile_c={TILE_C}, tile_r in {KERNEL_TILE_ROWS}; "
-            f"got tile_c={m.tile_c}, tile_r={m.tile_r}"
+        raise ValueError(f"the kernels need d a positive multiple of 4, got {d}")
+    _check_dense("x", x, (m.n_cols, d), x.device)
+    return d
+
+
+def _check_csr(m: BSRMatrix, x: torch.Tensor) -> int:
+    """Checks for a kernel that gathers over the edge form; returns d."""
+    d = _check_x(m, x)
+    if m.val.dtype not in _DTYPES.values() or m.row_ptr.numel() != m.n_rows + 1:
+        raise ValueError(
+            f"BSRMatrix's edge form needs float32 or bfloat16 values and {m.n_rows + 1} "
+            f"row pointers; got {m.val.dtype} and {m.row_ptr.numel()}"
         )
-    if m.tiles.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"tiles must be float32 or bfloat16, got {m.tiles.dtype}")
-    for name in ("tiles", "tile_cb", "tile_ptr", "strips", "strip_rb",
-                 "strip_cb", "strip_ptr", "strip_order"):
+    for name in ("row_ptr", "col", "val"):
         t = getattr(m, name)
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"BSRMatrix.{name} must be contiguous on {x.device}")
-        if t.numel() and t.data_ptr() % 16:
-            raise ValueError(f"BSRMatrix.{name} is not 16-byte aligned")
-    if x.data_ptr() % 16:
-        raise ValueError("x is not 16-byte aligned")
+    return d
 
 
 def bsr_matmul(m: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
     """out = A @ x (f32 out). A CUDA tensor goes through the hand-written
-    kernel (``csrc/bsr_spmm.cu``) or raises; a CPU tensor takes the plain
-    version. Counts each kernel launch in ``_build.LAUNCHES['bsr_spmm']``."""
+    row-gather kernel over the edge form (``csrc/bsr_spmm.cu``) or raises; a
+    CPU tensor takes the plain version. Counts each kernel launch in
+    ``_build.LAUNCHES['bsr_spmm']``."""
     if x.device.type == "cpu":
         return bsr_matmul_plain(m, x)
     if x.device.type != "cuda":
         raise ValueError(f"bsr_matmul runs on cuda or cpu tensors, got {x.device}")
-    _check_kernel_args(m, x)
+    d = _check_csr(m, x)
     lib = _kernel_lib()
-    entry = lib.bsr_spmm_bf16 if m.tiles.dtype == torch.bfloat16 else lib.bsr_spmm_f32
-    out = torch.empty((m.n_rows, x.shape[1]), dtype=torch.float32, device=x.device)
+    entry = lib.bsr_spmm_bf16 if m.val.dtype == torch.bfloat16 else lib.bsr_spmm_f32
+    out = torch.empty((m.n_rows, d), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         code = entry(
-            m.tiles.data_ptr(), m.tile_cb.data_ptr(), m.tile_ptr.data_ptr(),
-            m.strips.data_ptr(), m.strip_rb.data_ptr(), m.strip_cb.data_ptr(),
-            m.strip_ptr.data_ptr(), m.strip_order.data_ptr(),
-            x.data_ptr(), out.data_ptr(),
-            m.n_rows // m.tile_r, m.tile_r, x.shape[1],
+            m.row_ptr.data_ptr(), m.col.data_ptr(), m.val.data_ptr(),
+            x.data_ptr(), out.data_ptr(), m.n_rows, d,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, "bsr_spmm", code)

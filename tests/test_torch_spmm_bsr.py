@@ -184,6 +184,9 @@ def test_library_path_keys_on_source_and_flags(monkeypatch, tmp_path):
     path = _build.library_path("bsr_spmm")
     assert path == _build.library_path("bsr_spmm")
     assert [p.name for p in _build.sources("gcn_fused")] == ["gcn_fused.cu", "bsr_stream.cuh"]
+    assert [p.name for p in _build.sources("bsr_spmm")] == ["bsr_spmm.cu", "csr_gather.cuh"]
+    assert [p.name for p in _build.sources("gcn_fused_bwd")] == [
+        "gcn_fused_bwd.cu", "csr_gather.cuh"]
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS[:-2])
     assert _build.library_path("bsr_spmm") != path
     monkeypatch.undo()
@@ -193,12 +196,17 @@ def test_library_path_keys_on_source_and_flags(monkeypatch, tmp_path):
     for src in _build.CSRC.iterdir():
         (csrc / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(_build, "CSRC", csrc)
-    before = {name: _build.library_path(name) for name in ("bsr_spmm", "gcn_fused")}
+    names = ("bsr_spmm", "gcn_fused", "gcn_fused_bwd")
+    before = {name: _build.library_path(name) for name in names}
     assert before["bsr_spmm"] == path  # the same bytes give the same name
-    header = csrc / "bsr_stream.cuh"
-    header.write_bytes(header.read_bytes() + b"\n// edited\n")
-    for name in ("bsr_spmm", "gcn_fused"):  # both include the edited header
-        assert _build.library_path(name) != before[name], name
+    # each header edit renames exactly the libraries that include it
+    for header_name, includers in (("bsr_stream.cuh", {"gcn_fused"}),
+                                   ("csr_gather.cuh", {"bsr_spmm", "gcn_fused_bwd"})):
+        header = csrc / header_name
+        header.write_bytes(header.read_bytes() + b"\n// edited\n")
+        after = {name: _build.library_path(name) for name in names}
+        assert {name for name in names if after[name] != before[name]} == includers, header_name
+        before = after
     fused = _build.library_path("gcn_fused")
     (csrc / "gcn_fused.cu").write_bytes((csrc / "gcn_fused.cu").read_bytes() + b"\n")
     assert _build.library_path("gcn_fused") != fused
