@@ -11,7 +11,9 @@ per source, started together) and drives the port only (no JAX), one line
 per phase:
 
 1. the card (nvidia-smi name and power limit) and torch/CUDA versions;
-2. the kernel builds, with nvcc's register/spill report;
+2. the kernel builds, with nvcc's register/spill report, and the fused
+   kernels' shared-memory plans against the Python ones that fused_fits
+   reads;
 3. kernel B1 (bsr_spmm, a row gather over each direction's edge form)
    against its plain PyTorch version on the card: the chr1-scale bench
    graph's forward and transposed directions at d 128 and 256, f32 and bf16,
@@ -25,11 +27,12 @@ per phase:
    against one step of the plain COO path from the same weights, then
    5 train steps with dropout 0.2 and one eval step, counting kernel
    launches (8 B1 per train step, 4 per eval step);
-6. kernels B2 (gcn_fused) and B3 (gcn_fused_bwd) against their plain
-   versions: the bench graph at d 128, f32 and bf16, B3 also on the hub
-   graph and at d 192, and small graphs with an empty range of row blocks
-   at d 32 for every tile height B2 is built for, and B3 at the widest
-   width the fused layer admits, against a dense float64 product;
+6. kernels B2 (gcn_fused) and B3 (gcn_fused_bwd), row gathers over the
+   edge form with a 3xTF32 tensor-core epilogue, against their plain
+   versions: the bench graph at d 128, f32 and bf16, the hub graph, d 192
+   and a tile-256 operator; small graphs with an empty range of rows at
+   d 32 for tile heights 32-256, and both kernels at the widest width the
+   fused layer admits, against a dense float64 product;
 7. the FusedGatedLayer gradients (dx, dw, db, du, dbu) against the plain
    version's autograd, at full width;
 8. the fused main path at full width (``fused="on"``): one train step
@@ -44,9 +47,10 @@ per phase:
    functions of a group timed in turns: B1, B2 and B3 per launch with CUDA
    events, their plain versions and a library yardstick the port never
    calls (torch.sparse.mm over CSR, composed with the epilogue's ops for
-   B2/B3); each kernel's share of its bound (what the data needs: the edge
-   list, the dense arrays, 2 nnz d operations plus the epilogue GEMM); the
-   train and eval steps, unfused and fused, on the host clock;
+   B2/B3), and B2's and B3's gather and epilogue apart; each kernel's share
+   of its bound (what the data needs: the edge list, the dense arrays,
+   2 nnz d operations plus the epilogue GEMM at 3xTF32's rate); the train
+   and eval steps, unfused and fused, on the host clock;
 11. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -84,6 +88,9 @@ KERNELS = ("bsr_spmm", "gcn_fused", "gcn_fused_bwd")
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# the fastest f32-faithful GEMM the port runs: 3xTF32 on tensor cores, three
+# TF32 products (495 TFLOP/s dense, NVIDIA data sheet) per f32 one
+TF32X3_FLOPS = 495e12 / 3
 # kernel vs plain version: f32 sums of the same products in another order
 ATOL, RTOL = 1e-5, 1e-5
 # profile groups, by words in the kernel's name (first match wins)
@@ -201,17 +208,17 @@ def bound(m, d):
     return max(t_bytes, t_ops), by, nbytes, flops
 
 
-def fused_bound(m, d, bwd):
+def fused_bound(m, d, bwd, epi_rate=TF32X3_FLOPS):
     """Least time (ms) for one B2 (``bwd`` False: read x, w, b, write z) or
     B3 (read ds, dx_dir, w, write h and dx) launch over ``m``: the product's
     bytes and operations as ``bound``, plus the other dense arrays and the
-    epilogue GEMM (2 n_rows d^2 f32 operations). Returns (ms, 'bytes' or
-    'operations', bytes, operations)."""
+    epilogue GEMM (2 n_rows d^2 f32-faithful operations at ``epi_rate``).
+    Returns (ms, 'bytes' or 'operations', bytes, operations)."""
     _, _, nbytes, stream_flops = bound(m, d)
     nbytes += 4 * (d * d + m.n_rows * d * (2 if bwd else 0) + (0 if bwd else d))
     epi_flops = 2 * m.n_rows * d * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (stream_flops / PEAK_FLOPS[m.val.dtype] + epi_flops / PEAK_FLOPS[torch.float32]) * 1e3
+    t_ops = (stream_flops / PEAK_FLOPS[m.val.dtype] + epi_flops / epi_rate) * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, nbytes, stream_flops + epi_flops
 
@@ -383,25 +390,24 @@ def main():
         for line in (build_log or "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {name}: {line.strip()}")
-    fused_lib = gcn_fused._kernel_lib()
-    for tile, d in ((32, 32), (64, 128), (128, 128), (128, 192)):
-        require(fused_lib.gcn_fused_smem_bytes(tile, d) == gcn_fused.smem_bytes(tile, d),
-                f"fused_fits' shared-memory plan differs from the kernel's at tile {tile}, d {d}")
-    # B3's own plan fits at every (tile, d) fused_fits admits, and is the
-    # plan its wrapper checks
-    bwd_lib = gcn_fused._bwd_kernel_lib()
-    admitted = {tile: [d for d in range(4, 4097, 4)
-                       if gcn_fused.smem_bytes(tile, d) <= gcn_fused.SMEM_LIMIT]
-                for tile in gcn_fused.FUSED_TILE_ROWS}
-    widest = max(max(ds) for ds in admitted.values())
-    for tile, widths in admitted.items():
-        for d in widths:
-            plan = bwd_lib.gcn_fused_bwd_smem_bytes(d)
-            require(plan == gcn_fused.bwd_smem_bytes(d) <= gcn_fused.SMEM_LIMIT,
-                    f"B3's plan at tile {tile}, d {d} ({plan} bytes) does not fit")
-    log(f"  B3 plan fits every width fused_fits admits: d <= "
-        f"{', '.join(f'{max(w)} at tile {t}' for t, w in admitted.items())}; "
-        f"{gcn_fused.bwd_smem_bytes(widest)} bytes at d {widest}")
+    # B2's and B3's plans are the ones fused_fits and the wrappers read, and
+    # both fit at every width fused_fits admits (it reads no tiles, so any
+    # operator will do)
+    fwd_lib, bwd_lib = gcn_fused._kernel_lib(), gcn_fused._bwd_kernel_lib()
+    tiny = bsr_from_graph(from_dense(np.eye(128), device=cuda), device=cuda)
+    admitted = [d for d in range(4, 4097, 4) if gcn_fused.fused_fits(tiny, d)]
+    widest = admitted[-1]
+    require(admitted == list(range(4, widest + 1, 4)), "fused_fits admits a ragged set of widths")
+    for d in range(4, 4097, 4):
+        plans = (fwd_lib.gcn_fused_smem_bytes(d), bwd_lib.gcn_fused_bwd_smem_bytes(d))
+        require(plans == (gcn_fused.fwd_smem_bytes(d), gcn_fused.bwd_smem_bytes(d)),
+                f"a fused kernel's shared-memory plan differs from the Python one at d {d}")
+        require(d > widest or max(plans) <= gcn_fused.SMEM_LIMIT,
+                f"a plan at admitted d {d} does not fit: {plans} bytes")
+    log(f"  B2/B3 plans equal the Python ones at d 4-4096 and fit at every width "
+        f"fused_fits admits (d <= {widest}): {gcn_fused.fwd_smem_bytes(D)} and "
+        f"{gcn_fused.bwd_smem_bytes(D)} bytes at d {D}, {gcn_fused.fwd_smem_bytes(widest)} "
+        f"and {gcn_fused.bwd_smem_bytes(widest)} at d {widest}")
 
     gen = torch.Generator(device=cuda).manual_seed(0)
 
@@ -546,8 +552,8 @@ def main():
             "the unfused path launched a fused kernel")
 
     # ---- 6. B2 and B3 against their plain versions ----
-    log("[6 B2/B3 vs plain] bench graph d=128 (f32, bf16); B3 on the hub graph and at "
-        "d=192; dense 1024 graphs with an empty range of row blocks, d=32, and B3 at the "
+    log("[6 B2/B3 vs plain] bench graph d=128 (f32, bf16); the hub graph, d=192 and tile "
+        "256; dense 1024 graphs with an empty range of rows, d=32, and both kernels at the "
         f"widest admitted d={widest}")
     w, b = randn(D, D) / D ** 0.5, 0.1 * randn(D)
     errs_fused = {"gcn_fused_fwd": [], "gcn_fused_bwd": []}
@@ -563,22 +569,28 @@ def main():
         errs_fused["gcn_fused_bwd"].append(compare(f"B3 {key} h", h, h_ref))
         errs_fused["gcn_fused_bwd"].append(compare(f"B3 {key} dx (atol of scale)", dx, dx_ref,
                                                    scaled=True))
-    # B3 over the hub graph's rows of up to ~170 entries, and at d 192 (the
-    # widest tile 128 admits)
-    for key, d in (("hub", D), ("f32", 192)):
-        m = ops[key].bwd
-        ds, dx_dir = randn(N_PAD, d), randn(N_PAD, d)
-        wd = randn(d, d) / d ** 0.5
-        h_ref, dx_ref = fused_bwd_plain(m, ds, dx_dir, wd)
+    # the hub graph's rows of up to ~170 entries, d 192 (three 64-column W
+    # chunks), and a tile-256 operator, which the edge-form kernels take like
+    # any other
+    for key, d in (("hub", D), ("f32", 192), ("tile256_min8", D)):
+        o = ops[key]
+        require(gcn_fused.fused_fits(o, d), f"fused_fits refuses {key} at d {d}")
+        x, ds, dx_dir = randn(N_PAD, d), randn(N_PAD, d), randn(N_PAD, d)
+        wd, bd = randn(d, d) / d ** 0.5, 0.1 * randn(d)
+        ref = fused_fwd_plain(o.fwd, x, wd, bd)
+        poison_allocator((N_PAD, d))
+        errs_fused["gcn_fused_fwd"].append(
+            compare(f"B2 {key} d={d} z", fused_fwd(o.fwd, x, wd, bd), ref))
+        h_ref, dx_ref = fused_bwd_plain(o.bwd, ds, dx_dir, wd)
         poison_allocator((2 * N_PAD, d))
-        h, dx = fused_bwd(m, ds, dx_dir, wd)
+        h, dx = fused_bwd(o.bwd, ds, dx_dir, wd)
         errs_fused["gcn_fused_bwd"].append(compare(f"B3 {key} d={d} h", h, h_ref))
         errs_fused["gcn_fused_bwd"].append(compare(f"B3 {key} d={d} dx (atol of scale)", dx,
                                                    dx_ref, scaled=True))
-    del ds, dx_dir, h, dx, h_ref, dx_ref
+    del x, ref, ds, dx_dir, h, dx, h_ref, dx_ref
     # rows and columns 512-639 hold no edge: every tile height leaves at least
     # one row block empty in both directions (z = tanh(b), h = 0, dx = dx_dir)
-    for tile in gcn_fused.FUSED_TILE_ROWS:
+    for tile in (32, 64, 128, 256):
         rng = np.random.default_rng(tile)
         dense = (rng.random((1024, 1024)) < 0.01) * rng.random((1024, 1024))
         dense[512:640] = 0.0
@@ -601,15 +613,23 @@ def main():
         errs_fused["gcn_fused_bwd"].append(compare(
             f"B3 dense tile={tile} dx vs float64", dx,
             (dx_dir.double() + h64 @ ws.double().T).float(), scaled=True))
-    # B3 at the widest width the fused layer admits (the smallest CTA rows)
+    # both kernels at the widest width the fused layer admits (the smallest
+    # CTA rows). atol of the summed terms' magnitude: each entry sums d
+    # products in f32, whose rounding grows with the terms, not the result
     d = widest
-    ds, dx_dir, ws = randn(1024, d), randn(1024, d), randn(d, d) / d ** 0.5
+    x, ws, bs = randn(1024, d), randn(d, d) / d ** 0.5, 0.1 * randn(d)
+    x64 = a64 @ x.double()
+    terms = ((a64 @ x.double().abs()) @ ws.double().abs() + bs.double().abs()).max().item()
+    poison_allocator((1024, d))
+    errs_fused["gcn_fused_fwd"].append(compare(
+        f"B2 dense d={d} z vs float64 (atol of the terms' scale)", fused_fwd(o.fwd, x, ws, bs),
+        torch.tanh(x64 @ ws.double() + bs.double()).float(), scale=terms))
+    del x, x64
+    ds, dx_dir = randn(1024, d), randn(1024, d)
     h64 = a64.T @ ds.double()
     poison_allocator((2 * 1024, d))
     h, dx = fused_bwd(o.bwd, ds, dx_dir, ws)
     errs_fused["gcn_fused_bwd"].append(compare(f"B3 dense d={d} h vs float64", h, h64.float()))
-    # atol of the summed terms' magnitude: each dx entry sums 1,344 products
-    # in f32, whose rounding grows with the terms, not with the result
     terms = (dx_dir.double().abs() + h64.abs() @ ws.double().abs().T).max().item()
     errs_fused["gcn_fused_bwd"].append(compare(
         f"B3 dense d={d} dx vs float64 (atol of the terms' scale)", dx,
@@ -761,13 +781,15 @@ def main():
     # torch.sparse.mm (CSR) with the epilogue's ops, as no single call does both
     ds, dx_dir = randn(N_PAD, D), randn(N_PAD, D)
     adj_t_csr = csr_of(graph, transpose=True)
-    h_t = bsr_matmul(op.bwd, ds)  # B3's h: B1 over op.bwd is the same gather
+    h_f = bsr_matmul(op.fwd, x)  # B2's h: B1 over op.fwd is the same gather
+    h_t = bsr_matmul(op.bwd, ds)  # B3's h, over op.bwd
     compare("library tanh(sparse.mm(A, x) @ w + b) vs B2",
             torch.tanh(torch.sparse.mm(adj_csr, x) @ w + b), fused_fwd(op.fwd, x, w, b))
     t = cuda_ms({
         "B2": lambda: fused_fwd(op.fwd, x, w, b),
         "B2 plain": lambda: fused_fwd_plain(op.fwd, x, w, b),
         "B2 library": lambda: torch.tanh(torch.sparse.mm(adj_csr, x) @ w + b),
+        "B2 epilogue GEMM": lambda: torch.tanh(torch.addmm(b, h_f, w)),
         "B3": lambda: fused_bwd(op.bwd, ds, dx_dir, w),
         "B3 plain": lambda: fused_bwd_plain(op.bwd, ds, dx_dir, w),
         "B3 library": lambda: torch.addmm(dx_dir, torch.sparse.mm(adj_t_csr, ds), w.T),
@@ -779,18 +801,24 @@ def main():
         ms, ms_plain, ms_lib = (statistics.median(t[k]) for k in (key, f"{key} plain",
                                                                    f"{key} library"))
         fb_ms, fb_by, fb_bytes, fb_flops = fused_bound(m, D, bwd)
+        ffma_ms, ffma_by, _, _ = fused_bound(m, D, bwd, epi_rate=PEAK_FLOPS[torch.float32])
         fused_rows[kernel] = (ms, ms_plain, ms_lib, fb_ms, fb_by)
         shares[key] = fb_ms / ms
         log(f"  {key} f32 d=128 ms/launch, median (min-max) of 5 loops of 20 in turns: "
             f"kernel {spread(t[key])}; plain {spread(t[f'{key} plain'])}; library "
             f"composition {spread(t[f'{key} library'])}; bound {fb_ms:.4f} ms by {fb_by} "
-            f"({fb_bytes / 1e6:.1f} MB, {fb_flops / 1e9:.4f} GFLOP); kernel at "
-            f"{100 * shares[key]:.1f}% of it, library composition at "
-            f"{100 * fb_ms / ms_lib:.1f}%")
-    log(f"  B3's two halves apart: B1 over op.bwd (the same gather, writes h) "
-        f"{spread(t_b1['bwd'])}; the epilogue as one cuBLAS call, "
-        f"torch.addmm(dx_dir, h, w.T) in f32, {spread(t['B3 epilogue GEMM'])}")
-    del x, ds, dx_dir, h_t
+            f"({fb_bytes / 1e6:.1f} MB, {fb_flops / 1e9:.4f} GFLOP, the GEMM at 3xTF32's "
+            f"{TF32X3_FLOPS / 1e12:.0f} TFLOP/s); kernel at {100 * shares[key]:.1f}% of it, "
+            f"library composition at {100 * fb_ms / ms_lib:.1f}%; record, not the bound: "
+            f"with the GEMM at f32 FFMA's 67 TFLOP/s it would read {ffma_ms:.4f} ms by "
+            f"{ffma_by}")
+    for key, kind, direction, gemm in (
+            ("B2", "fwd", "op.fwd", "torch.tanh(torch.addmm(b, h, w))"),
+            ("B3", "bwd", "op.bwd", "torch.addmm(dx_dir, h, w.T)")):
+        log(f"  {key}'s two halves apart: B1 over {direction} (the same gather, writes h) "
+            f"{spread(t_b1[kind])}; the epilogue in cuBLAS, {gemm} in f32, "
+            f"{spread(t[f'{key} epilogue GEMM'])}")
+    del x, ds, dx_dir, h_f, h_t
     # a share above 100% would mean the bound counts less than the work needs
     require(all(v <= 1.0 for v in shares.values()), f"a share of bound above 100%: {shares}")
 

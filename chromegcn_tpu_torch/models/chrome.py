@@ -14,9 +14,9 @@ Parameter names are the reference torch model's (utils/parity.py:38-47):
 ``out``. The forward always gates; ``gate`` is kept for config parity.
 
 ``fused="on"`` runs each layer through ``ops.gcn_fused.fused_gated_layer``
-(kernels B2 and B3) when the graph carries a BSR operator the kernels take
-(reference: models/chrome.py:151-217). The parameters are the same ones, so
-a state_dict carries over between the two paths.
+(kernels B2 and B3) when the graph carries a BSR operator and the kernels
+take the width (reference: models/chrome.py:151-217). The parameters are the
+same ones, so a state_dict carries over between the two paths.
 """
 
 from __future__ import annotations

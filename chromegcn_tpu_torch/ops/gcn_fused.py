@@ -6,9 +6,9 @@ This module computes the same layer with two hand-written kernels, which
 replace the TPU kernels of the reference:
 
 - ``fused_fwd`` (B2, ``_fused_fwd_call``; ``csrc/gcn_fused.cu``):
-  ``z = tanh((A @ x) W + b)``. By associativity A (x W) == (A x) W, so the
-  block stream runs against x directly and the GEMM, bias and tanh are the
-  kernel's epilogue;
+  ``z = tanh((A @ x) W + b)``. By associativity A (x W) == (A x) W, so
+  ``h = A x`` is gathered over the forward direction's edge form and
+  ``tanh(h W + b)`` runs on tensor cores in 3xTF32;
 - ``fused_bwd`` (B3, ``_fused_bwd_call``; ``csrc/gcn_fused_bwd.cu``):
   ``h = A^T ds`` gathered over the transposed direction's edge form, then
   ``dx = dx_dir + h W^T`` on tensor cores in 3xTF32.
@@ -17,12 +17,15 @@ The gate, the lerp and the cotangent algebra of the backward pass (ds, db,
 du, dbu, dx_dir, and dW = x^T h after B3) stay plain torch, as they stay in
 XLA in the reference (:341-364). The operator gets no gradient.
 
-``fused_fits`` is B2's limit: the tile heights it is built for, and a
-shared-memory plan (a tile_r x d accumulator beside the block stream's
-staging buffers) that fits one CTA on the card. B3 reads no tiles; its plan
-(``bwd_smem_bytes``) fits at every width ``fused_fits`` admits. The
-reference's VMEM budget does not apply here. Where ``fused_fits`` says no,
-the model takes the unfused path, as the reference does.
+Both kernels run one core (``csrc/gather_mma.cuh``): a CTA gathers R
+consecutive rows of ``A @ x`` over the direction's edge form into shared
+memory, then multiplies them by W (B2) or W^T (B3). ``fused_fits`` is the
+kernels' own rule: an operator with an edge form (a ``BSROperator``), d a
+positive multiple of 4, and both kernels' shared-memory plans
+(``fwd_smem_bytes``, ``bwd_smem_bytes``) within one CTA's limit, which
+admits every tile height and widths up to 3,328. The reference's VMEM
+budget does not apply here. Where ``fused_fits`` says no, the model takes
+the unfused path, as the reference does.
 """
 
 from __future__ import annotations
@@ -34,48 +37,42 @@ import torch
 
 from chromegcn_tpu_torch.ops import _build
 from chromegcn_tpu_torch.ops.spmm_bsr import (
-    STRIP_R, TILE_C, BSRMatrix, BSROperator, _check_csr, _check_dense, _check_x,
-    bsr_matmul_plain,
+    BSRMatrix, BSROperator, _check_csr, _check_dense, bsr_matmul_plain,
 )
 
-FUSED_TILE_ROWS = (32, 64, 128)  # tile heights csrc/gcn_fused.cu is built for
 SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use on an H100
-_SLICE = 64  # output columns per slice of the block stream (bsr_stream.cuh DC)
-# B3's W chunk (csrc/gcn_fused_bwd.cu NC x KC, rows padded to KC + 4 floats)
-_BWD_NC, _BWD_KC = 64, 32
+# the W chunk csrc/gather_mma.cuh stages: _NC output columns x _KC k
+_NC, _KC = 64, 32
 
 
-def smem_bytes(tile_r: int, d: int) -> int:
-    """Shared memory of one B2 CTA: the block stream's staged tile
-    (tile_r x 132), x block (128 x 64) and strip (8 x 128), and the
-    tile_r x (d padded to 64, + 4) accumulator (csrc/gcn_fused.cu)."""
-    width = -(-d // _SLICE) * _SLICE
-    floats = tile_r * (TILE_C + 4) + TILE_C * _SLICE + STRIP_R * TILE_C + tile_r * (width + 4)
-    return 4 * floats
-
-
-def bwd_rows_per_cta(d: int) -> int:
-    """Rows of h one B3 CTA gathers and multiplies at width ``d``."""
+def rows_per_cta(d: int) -> int:
+    """Rows of h one B2 or B3 CTA gathers and multiplies at width ``d``."""
     return 64 if d <= 256 else (32 if d <= 640 else 16)
 
 
+def _tile_floats(d: int) -> int:
+    """The CTA's tile of h: its rows, (d padded to _KC, + 4) floats each."""
+    return rows_per_cta(d) * (-(-d // _KC) * _KC + 4)
+
+
+def fwd_smem_bytes(d: int) -> int:
+    """Shared memory of one B2 CTA: its tile of h and two W chunks of _KC
+    rows of W, (_NC + 8) floats each (csrc/gather_mma.cuh)."""
+    return 4 * (_tile_floats(d) + 2 * _KC * (_NC + 8))
+
+
 def bwd_smem_bytes(d: int) -> int:
-    """Shared memory of one B3 CTA: its rows of h, (d padded to 32, + 4)
-    floats each, and two W chunks (csrc/gcn_fused_bwd.cu)."""
-    k_extent = -(-d // _BWD_KC) * _BWD_KC
-    return 4 * (bwd_rows_per_cta(d) * (k_extent + 4) + 2 * _BWD_NC * (_BWD_KC + 4))
-
-
-def _matrix_fits(m: BSRMatrix, d: int) -> bool:
-    return (
-        m.tile_c == TILE_C and m.tile_r in FUSED_TILE_ROWS and d > 0 and d % 4 == 0
-        and smem_bytes(m.tile_r, d) <= SMEM_LIMIT
-    )
+    """Shared memory of one B3 CTA: its tile of h and two W chunks of _NC
+    rows of W, (_KC + 4) floats each (csrc/gather_mma.cuh)."""
+    return 4 * (_tile_floats(d) + 2 * _NC * (_KC + 4))
 
 
 def fused_fits(op, d: int) -> bool:
     """Whether the fused kernels take this operator at width ``d``."""
-    return isinstance(op, BSROperator) and _matrix_fits(op.fwd, d) and _matrix_fits(op.bwd, d)
+    return (
+        isinstance(op, BSROperator) and d > 0 and d % 4 == 0
+        and max(fwd_smem_bytes(d), bwd_smem_bytes(d)) <= SMEM_LIMIT
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +81,8 @@ def fused_fits(op, d: int) -> bool:
 
 
 def fused_fwd_plain(m: BSRMatrix, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """z = tanh((A @ x) w + b) in plain PyTorch: B2's reference, and its
+    """z = tanh((A @ x) w + b) in plain PyTorch over the blocks: B2's
+    reference, independent of the edge form the kernel reads, and its
     version for CPU tensors."""
     return torch.tanh(bsr_matmul_plain(m, x) @ w + b)
 
@@ -99,7 +97,7 @@ def fused_bwd_plain(
 
 
 _PTR = ctypes.c_void_p
-_FWD_ARGTYPES = [_PTR] * 12 + [ctypes.c_int] * 3 + [_PTR]
+_FWD_ARGTYPES = [_PTR] * 7 + [ctypes.c_int] * 2 + [_PTR]
 _BWD_ARGTYPES = [_PTR] * 8 + [ctypes.c_int] * 2 + [_PTR]
 
 
@@ -108,7 +106,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("gcn_fused")
     for fn in (lib.gcn_fused_fwd_f32, lib.gcn_fused_fwd_bf16):
         fn.argtypes, fn.restype = _FWD_ARGTYPES, ctypes.c_int
-    lib.gcn_fused_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.gcn_fused_smem_bytes.argtypes = [ctypes.c_int]
     lib.gcn_fused_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -123,49 +121,29 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-_BLOCK_FIELDS = ("tiles", "tile_cb", "tile_ptr", "strips", "strip_rb", "strip_cb",
-                 "strip_ptr", "strip_order")
-
-
-def _check_blocks(m: BSRMatrix, x: torch.Tensor) -> int:
-    """B2's checks of the block arrays it walks and of its plan; returns d."""
-    d = _check_x(m, x)
-    if m.tiles.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"B2 takes float32 or bfloat16 tiles, got {m.tiles.dtype}")
-    if not _matrix_fits(m, d):
-        raise NotImplementedError(
-            f"B2 takes tile_c={TILE_C}, tile_r in {FUSED_TILE_ROWS} and a "
-            f"width whose plan fits {SMEM_LIMIT} bytes of shared memory; got "
-            f"tile_r={m.tile_r}, d={d} ({smem_bytes(m.tile_r, d)} bytes)"
-        )
-    for name in _BLOCK_FIELDS:
-        t = getattr(m, name)
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"BSRMatrix.{name} must be contiguous on {x.device}")
-        if t.numel() and t.data_ptr() % 16:
-            raise ValueError(f"BSRMatrix.{name} is not 16-byte aligned")
-    return d
-
-
 def fused_fwd(m: BSRMatrix, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """z = tanh((A @ x) w + b), A = ``m``. A CUDA tensor goes through kernel
-    B2 or raises; a CPU tensor takes the plain version. Counts each launch
-    in ``_build.LAUNCHES['gcn_fused_fwd']``."""
+    B2 (over ``m``'s edge form) or raises; a CPU tensor takes the plain
+    version. Counts each launch in ``_build.LAUNCHES['gcn_fused_fwd']``."""
     if x.device.type == "cpu":
         return fused_fwd_plain(m, x, w, b)
     if x.device.type != "cuda":
         raise ValueError(f"fused_fwd runs on cuda or cpu tensors, got {x.device}")
-    d = _check_blocks(m, x)
+    d = _check_csr(m, x)
+    if fwd_smem_bytes(d) > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"B2's plan at d={d} takes {fwd_smem_bytes(d)} bytes of shared memory, "
+            f"over {SMEM_LIMIT}"
+        )
     _check_dense("w", w, (d, d), x.device)
     _check_dense("b", b, (d,), x.device)
     lib = _kernel_lib()
-    entry = lib.gcn_fused_fwd_bf16 if m.tiles.dtype == torch.bfloat16 else lib.gcn_fused_fwd_f32
+    entry = lib.gcn_fused_fwd_bf16 if m.val.dtype == torch.bfloat16 else lib.gcn_fused_fwd_f32
     z = torch.empty((m.n_rows, d), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         code = entry(
-            *(getattr(m, name).data_ptr() for name in _BLOCK_FIELDS),
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), z.data_ptr(),
-            m.n_rows // m.tile_r, m.tile_r, d,
+            m.row_ptr.data_ptr(), m.col.data_ptr(), m.val.data_ptr(), x.data_ptr(),
+            w.data_ptr(), b.data_ptr(), z.data_ptr(), m.n_rows, d,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, "gcn_fused_fwd", code)

@@ -11,16 +11,16 @@ as the reference builds them:
 The host arrays (``tiles``, ``tile_rb``, ``tile_cb``, ``strips``,
 ``strip_rb``, ``strip_cb``, ``live``) equal the JAX builder's, padding
 included: block counts are bucketed with zero blocks at (0, 0). The port
-adds the live counts ``nt``/``ns``, per-row-block pointers built from them
-(so padding is never visited) and a strip order that groups each row
-block's strips by column block, which the fused forward kernel B2 walks.
+adds the live counts ``nt``/``ns``.
 
 Each direction also carries its **edge form** (CSR: ``row_ptr``, ``col``,
 ``val``), built from exactly the nonzeros written into the live blocks.
-The card's SpMM kernel (``csrc/bsr_spmm.cu``, which replaces the TPU kernel
-``_bsr_matmul``) and the fused backward kernel B3 gather over it: the
-blocks hold ~50 stored elements per edge on a Hi-C graph, and the product
-is bound by the bytes it moves. The plain versions read the blocks.
+Every kernel on the card gathers over it: the SpMM kernel
+(``csrc/bsr_spmm.cu``, which replaces the TPU kernel ``_bsr_matmul``) and
+the fused layer's kernels B2 and B3. The blocks hold ~50 stored elements
+per edge on a Hi-C graph, and the product is bound by the bytes it moves.
+The plain versions read the blocks, so they stay an oracle independent of
+the edge form.
 
 The tile/strip split constants are the reference's, kept so the arrays
 match; a split tuned for the H100 is a separate, later option. The card
@@ -69,9 +69,6 @@ class BSRMatrix:
     strip_rb: torch.Tensor   # (ns_pad,) int32 strip row-block index (units of 8 rows)
     strip_cb: torch.Tensor   # (ns_pad,) int32 strip col-block index (units of tile_c)
     live: torch.Tensor       # (2,) int32 live [tile steps, strip steps] of the reference grid
-    tile_ptr: torch.Tensor   # (n_rows/tile_r + 1,) int32 live tiles of row block b: [ptr[b], ptr[b+1])
-    strip_ptr: torch.Tensor  # (n_rows/tile_r + 1,) int32 same for the live strips
-    strip_order: torch.Tensor  # (ns,) int32 live strips, by row block, then col block
     row_ptr: torch.Tensor    # (n_rows + 1,) int32 CSR: row i's entries are [row_ptr[i], row_ptr[i+1])
     col: torch.Tensor        # (nnz,) int32 column of each entry, ascending within a row
     val: torch.Tensor        # (nnz,) value of each entry, in the tiles' dtype
@@ -196,16 +193,6 @@ def _build_one_direction(
         [max(1, -(-nt // TILES_PER_STEP)), max(1, -(-ns // STRIPS_PER_STEP))],
         np.int32,
     )
-    # the kernel's walk: row pointers over the LIVE blocks only (padding
-    # sits at rb 0 after them, so it would break the sort order)
-    row_blocks = np.arange(n_rows // tile_r + 1)
-    strips_per_rb = tile_r // STRIP_R
-    tile_ptr = np.searchsorted(tile_rb[:nt], row_blocks)
-    strip_ptr = np.searchsorted(strip_rb[:ns], row_blocks * strips_per_rb)
-    strip_order = np.lexsort(
-        (strip_rb[:ns], strip_cb[:ns], strip_rb[:ns] // strips_per_rb)
-    )
-
     # the edge form: the nonzeros of the live blocks, by row then column
     t_i, t_r, t_c = np.nonzero(tiles[:nt])
     s_i, s_r, s_c = np.nonzero(strips[:ns])
@@ -229,9 +216,6 @@ def _build_one_direction(
         strip_rb=dev(strip_rb),
         strip_cb=dev(strip_cb),
         live=dev(live),
-        tile_ptr=dev(tile_ptr.astype(np.int32)),
-        strip_ptr=dev(strip_ptr.astype(np.int32)),
-        strip_order=dev(strip_order.astype(np.int32)),
         row_ptr=dev(row_ptr.astype(np.int32)),
         col=dev(cols[order].astype(np.int32)),
         # the summed f32 value, cast after the sum as the tiles are

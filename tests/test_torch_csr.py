@@ -1,6 +1,6 @@
 """Port parity: the edge form (CSR) that each direction of the port's
 block-sparse operator carries (chromegcn_tpu_torch.ops.spmm_bsr), which the
-card's kernels B1 and B3 gather over.
+card's kernels B1, B2 and B3 gather over.
 
 The edge form is held against its own blocks, bit for bit, and its product
 against the JAX package's spmm_pallas, whose Pallas kernel runs in interpret
@@ -157,16 +157,19 @@ def test_edge_form_checks_of_the_kernel_wrappers():
         tbsr._check_csr(m, torch.zeros((32, 512)).T)
 
 
-@pytest.mark.parametrize("tile", tfused.FUSED_TILE_ROWS)
-def test_bwd_plan_fits_every_width_the_fused_layer_admits(tile):
-    """B3 reads no tiles: its plan (rows of h and two W chunks) must fit at
-    every width B2's plan, and so fused_fits, admits (csrc/gcn_fused_bwd.cu;
-    gcn_fused_bwd_smem_bytes agrees on the card: chip_smoke.py)."""
-    widths = [d for d in range(4, 4097, 4) if tfused.smem_bytes(tile, d) <= tfused.SMEM_LIMIT]
-    assert widths and widths == list(range(4, widths[-1] + 1, 4))
-    for d in widths:
-        assert tfused.bwd_smem_bytes(d) <= tfused.SMEM_LIMIT, d
-    assert max(widths) == {32: 1344, 64: 576, 128: 192}[tile]
-    assert tfused.bwd_rows_per_cta(128) == 64 and tfused.bwd_rows_per_cta(1344) == 16
+@pytest.mark.parametrize("rows", [64, 32, 16])
+def test_bwd_plan_fits_every_width_the_fused_layer_admits(rows):
+    """B2 and B3 read no tiles: each width takes R rows of h a CTA (64, 32
+    or 16), and both plans (the rows of h and two W chunks) must fit at every
+    width of R's range that fused_fits admits (csrc/gather_mma.cuh;
+    gcn_fused_smem_bytes and gcn_fused_bwd_smem_bytes agree on the card:
+    chip_smoke.py)."""
+    op = tbsr.bsr_from_graph(_graphs("hic", n=512)[0], device=CPU)
+    widths = [d for d in range(4, 4097, 4) if tfused.rows_per_cta(d) == rows]
+    admitted = [d for d in widths if tfused.fused_fits(op, d)]
+    assert admitted and admitted == widths[:len(admitted)]
+    for d in admitted:
+        assert max(tfused.fwd_smem_bytes(d), tfused.bwd_smem_bytes(d)) <= tfused.SMEM_LIMIT, d
+    assert (admitted[0], admitted[-1]) == {64: (4, 256), 32: (260, 640), 16: (644, 3328)}[rows]
     assert tfused.bwd_smem_bytes(128) == 4 * (64 * (128 + 4) + 2 * 64 * (32 + 4))
     assert tfused.bwd_smem_bytes(30) == tfused.bwd_smem_bytes(32)  # k padded to 32

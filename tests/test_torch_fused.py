@@ -32,24 +32,30 @@ CPU = "cpu"
 N_VALID, N_PAD, D, NCLASS = 200, 256, 32, 5
 
 
+def _graph_pair(**attach):
+    """tests/test_fused.py's graph with its BSR form, on both sides."""
+    edges = make_hic_edges(N_VALID, 400, seed=3)
+    kw = dict(n_valid=N_VALID, n_pad=N_PAD, hic_edges=edges)
+    return (attach_bsr(tsp.build_chrom_graph("hic", device=CPU, **kw), device=CPU, **attach),
+            jax_attach_bsr(jsp.build_chrom_graph("hic", **kw), **attach))
+
+
+def _layer_inputs(d, w_scale, seed=0):
+    """(x, w, b, u, bu) of one gated layer at width d."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(N_PAD, d)).astype(np.float32)
+    w = (rng.normal(size=(d, d)) * w_scale).astype(np.float32)
+    b = (rng.normal(size=(d,)) * 0.1).astype(np.float32)
+    u = (rng.normal(size=(d, 1)) * 0.1).astype(np.float32)
+    bu = (rng.normal(size=(1,)) * 0.1).astype(np.float32)
+    return x, w, b, u, bu
+
+
 @pytest.fixture(scope="module")
 def world():
     """tests/test_fused.py's graph and layer inputs, on both sides."""
-    edges = make_hic_edges(N_VALID, 400, seed=3)
-    kw = dict(n_valid=N_VALID, n_pad=N_PAD, hic_edges=edges)
-    tg = tsp.build_chrom_graph("hic", device=CPU, **kw)
-    jg = jsp.build_chrom_graph("hic", **kw)
-    graphs = {
-        dtype: (attach_bsr(tg, dtype=dtype, device=CPU), jax_attach_bsr(jg, dtype=dtype))
-        for dtype in ("float32", "bfloat16")
-    }
-    rng = np.random.default_rng(0)
-    x = rng.normal(size=(N_PAD, D)).astype(np.float32)
-    w = (rng.normal(size=(D, D)) * 0.1).astype(np.float32)
-    b = (rng.normal(size=(D,)) * 0.1).astype(np.float32)
-    u = (rng.normal(size=(D, 1)) * 0.1).astype(np.float32)
-    bu = (rng.normal(size=(1,)) * 0.1).astype(np.float32)
-    return graphs, (x, w, b, u, bu)
+    graphs = {dtype: _graph_pair(dtype=dtype) for dtype in ("float32", "bfloat16")}
+    return graphs, _layer_inputs(D, 0.1)
 
 
 def _t(*arrays):
@@ -85,15 +91,14 @@ def _layer_loss(xn, z, g, r):
     return (xn * r1).sum() + (z * r2).sum() + (g * r3).sum()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fused_gated_layer_matches_jax(world, dtype):
-    """Outputs and the five gradients, with a loss that touches x_next, z
-    and g so every output cotangent flows (tests/test_fused.py:50-72)."""
-    graphs, inputs = world
-    tg, jg = graphs[dtype]
+def _check_layer_against_jax(tg, jg, inputs, bf16=False):
+    """The port's fused layer against JAX's, outputs and the five gradients,
+    with a loss that touches x_next, z and g so every output cotangent
+    flows (tests/test_fused.py:50-72)."""
+    d = inputs[0].shape[1]
     rng = np.random.default_rng(2)
-    r = (rng.normal(size=(N_PAD, D)).astype(np.float32),
-         rng.normal(size=(N_PAD, D)).astype(np.float32),
+    r = (rng.normal(size=(N_PAD, d)).astype(np.float32),
+         rng.normal(size=(N_PAD, d)).astype(np.float32),
          rng.normal(size=(N_PAD, 1)).astype(np.float32))
 
     params = [t.requires_grad_() for t in _t(*inputs)]
@@ -112,7 +117,7 @@ def test_fused_gated_layer_matches_jax(world, dtype):
     for name, p, ref in zip(("dx", "dw", "db", "du", "dbu"), params, jgrads):
         scale = float(np.abs(np.asarray(ref)).max())
         atol = 1e-5 * scale
-        if dtype == "bfloat16" and name in ("dx", "dw"):
+        if bf16 and name in ("dx", "dw"):
             # B3 rounds ds to bf16. The two frameworks' f32 ds differ in the
             # last bits, so a few entries round one bf16 ulp (2^-8) apart, and
             # h = A^T ds carries that into dx and dw (measured: 2.5e-4 of
@@ -120,6 +125,25 @@ def test_fused_gated_layer_matches_jax(world, dtype):
             atol = 2.0**-8 * scale
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(ref), rtol=1e-5,
                                    atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_gated_layer_matches_jax(world, dtype):
+    graphs, inputs = world
+    _check_layer_against_jax(*graphs[dtype], inputs, bf16=dtype == "bfloat16")
+
+
+@pytest.mark.parametrize("tile,d", [(256, 128), (128, 256)])
+def test_operators_the_edge_form_kernels_admit_match_jax(tile, d):
+    """A tile-256 operator at d 128, and d 256 on tile 128, which the
+    edge-form kernels take (the block walk took neither): the fused model
+    takes them, and the layer matches JAX's at the tolerances above."""
+    tg, jg = _graph_pair(tile=tile)
+    inputs = _layer_inputs(d, d ** -0.5, seed=d)
+    assert tfused.fused_fits(tg.bsr, d)
+    model = ChromeGCN(nfeat=d, nhid=d, nclass=NCLASS, fused="on")
+    assert model._use_fused(torch.from_numpy(inputs[0]), tg)
+    _check_layer_against_jax(tg, jg, inputs)
 
 
 def _jax_model_and_params(jg, x):
@@ -258,33 +282,40 @@ def test_use_fused_conditions(world):
     assert not model._use_fused(xt, tg.replace(bsr=None))
     assert not model._use_fused(xt[:, None, :].expand(N_PAD, 2, D), tg)  # strand-stacked
     assert not ChromeGCN(nfeat=D, nhid=16, nclass=NCLASS, fused="on")._use_fused(xt, tg)
-    # an operator the kernels do not take: tile height 256
-    tall = tg.replace(bsr=bsr_from_graph(tg, tile=256, device=CPU))
-    assert not tfused.fused_fits(tall.bsr, D) and not model._use_fused(xt, tall)
+    # a width the kernels do not take: past both shared-memory plans
+    wide = 3332
+    assert not tfused.fused_fits(tg.bsr, wide)
+    xw = torch.from_numpy(np.random.default_rng(6).normal(size=(N_PAD, wide)).astype(np.float32))
+    wide_model = ChromeGCN(nfeat=wide, nhid=wide, nclass=NCLASS, fused="on")
+    assert not wide_model._use_fused(xw, tg)
     # ... and then the model takes the unfused path, with the same result
-    unfused = ChromeGCN(nfeat=D, nhid=D, nclass=NCLASS, fused="off")
-    unfused.load_state_dict(model.state_dict())
-    torch.testing.assert_close(model(xt, tall, train=False)[1],
-                               unfused(xt, tall, train=False)[1])
+    unfused = ChromeGCN(nfeat=wide, nhid=wide, nclass=NCLASS, fused="off")
+    unfused.load_state_dict(wide_model.state_dict())
+    torch.testing.assert_close(wide_model(xw, tg, train=False)[1],
+                               unfused(xw, tg, train=False)[1])
     with pytest.raises(ValueError):
         ChromeGCN(fused="auto")
 
 
 def test_fused_fits_is_the_kernels_plan(world):
+    """The edge-form kernels' rule: any operator with an edge form, d a
+    positive multiple of 4 whose two shared-memory plans fit."""
     graphs, _ = world
-    op = graphs["float32"][0].bsr
-    assert tfused.fused_fits(op, 32) and tfused.fused_fits(op, 128)
-    assert tfused.fused_fits(op, 192) and not tfused.fused_fits(op, 256)
-    assert not tfused.fused_fits(op, 30) and not tfused.fused_fits(op, 0)
-    assert not tfused.fused_fits(None, 32) and not tfused.fused_fits(op.fwd, 32)
     tg = graphs["float32"][0]
-    for tile, fits in ((32, True), (64, True), (256, False)):
-        assert tfused.fused_fits(bsr_from_graph(tg, tile=tile, device=CPU), 128) == fits
+    op = tg.bsr
+    assert tfused.fused_fits(op, 32) and tfused.fused_fits(op, 128)
+    assert tfused.fused_fits(op, 256) and tfused.fused_fits(op, 3328)
+    assert not tfused.fused_fits(op, 30) and not tfused.fused_fits(op, 0)
+    assert not tfused.fused_fits(op, 3332)  # past both plans
+    assert tfused.bwd_smem_bytes(3332) > tfused.SMEM_LIMIT < tfused.fwd_smem_bytes(3332)
+    assert not tfused.fused_fits(None, 32) and not tfused.fused_fits(op.fwd, 32)
+    for tile in (32, 64, 128, 256):  # the kernels read no tiles
+        assert tfused.fused_fits(bsr_from_graph(tg, tile=tile, device=CPU), 128)
     # the plan csrc/gcn_fused.cu launches with (gcn_fused_smem_bytes agrees
-    # on the card: chip_smoke.py)
-    assert tfused.smem_bytes(128, 128) == 4 * (128 * 132 + 128 * 64 + 8 * 128 + 128 * 132)
-    assert tfused.smem_bytes(128, 192) <= tfused.SMEM_LIMIT < tfused.smem_bytes(128, 256)
-    assert tfused.smem_bytes(32, 32) == tfused.smem_bytes(32, 64)  # padded to 64
+    # on the card: chip_smoke.py): 64 rows of h, (128 + 4) floats each, and
+    # two W chunks of 32 rows of (64 + 8) floats
+    assert tfused.fwd_smem_bytes(128) == 4 * (64 * (128 + 4) + 2 * 32 * (64 + 8)) == 52_224
+    assert tfused.fwd_smem_bytes(30) == tfused.fwd_smem_bytes(32)  # k padded to 32
 
 
 def test_wrappers_take_plain_version_only_on_the_cpu(world):

@@ -79,24 +79,17 @@ def test_host_bsr_arrays_equal(kind, tile, min_edges, dtype):
 
 
 @pytest.mark.parametrize("tile,min_edges", [(128, "auto"), (256, 8), (128, 10**9)])
-def test_row_pointers_cover_live_blocks(tile, min_edges):
-    """The kernel's walk: each row block's live tiles and strips, padding never."""
+def test_live_blocks_are_sorted_and_padding_is_zero(tile, min_edges):
+    """The live counts: nt tiles sorted by row block, ns strips sorted by
+    (row, column) block, and past them only zero blocks at (0, 0)."""
     tg, _ = _graphs("hic")
     m = tbsr.bsr_from_graph(tg, tile, min_edges, device=CPU).fwd
-    nrb = m.n_rows // m.tile_r
-    tp, sp, order = m.tile_ptr.numpy(), m.strip_ptr.numpy(), m.strip_order.numpy()
-    assert tp[0] == 0 and tp[-1] == m.nt and len(tp) == nrb + 1
-    assert sp[0] == 0 and sp[-1] == m.ns and len(sp) == nrb + 1
-    assert sorted(order.tolist()) == list(range(m.ns))
-    rb, cb = m.tile_rb.numpy(), m.strip_cb.numpy()
-    srb = m.strip_rb.numpy() // (m.tile_r // 8)
-    for b in range(nrb):
-        assert (rb[tp[b]:tp[b + 1]] == b).all()
-        grp = order[sp[b]:sp[b + 1]]
-        assert (srb[grp] == b).all()
-        assert (np.diff(cb[grp]) >= 0).all()  # grouped by column block
-    # the padding really is zero blocks past the live counts
+    ncb = m.n_cols // m.tile_c
+    tkey = m.tile_rb[:m.nt].long() * ncb + m.tile_cb[:m.nt].long()
+    skey = m.strip_rb[:m.ns].long() * ncb + m.strip_cb[:m.ns].long()
+    assert bool((tkey.diff() > 0).all()) and bool((skey.diff() > 0).all())
     assert not m.tiles[m.nt:].any() and not m.strips[m.ns:].any()
+    assert not m.tile_rb[m.nt:].any() and not m.strip_rb[m.ns:].any()
 
 
 def _jax_spmm(jop, x):
@@ -183,10 +176,10 @@ def test_library_path_keys_on_source_and_flags(monkeypatch, tmp_path):
     includes names another library, so a stale build is never loaded."""
     path = _build.library_path("bsr_spmm")
     assert path == _build.library_path("bsr_spmm")
-    assert [p.name for p in _build.sources("gcn_fused")] == ["gcn_fused.cu", "bsr_stream.cuh"]
     assert [p.name for p in _build.sources("bsr_spmm")] == ["bsr_spmm.cu", "csr_gather.cuh"]
-    assert [p.name for p in _build.sources("gcn_fused_bwd")] == [
-        "gcn_fused_bwd.cu", "csr_gather.cuh"]
+    for name in ("gcn_fused", "gcn_fused_bwd"):
+        assert [p.name for p in _build.sources(name)] == [
+            f"{name}.cu", "gather_mma.cuh", "csr_gather.cuh"]
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS[:-2])
     assert _build.library_path("bsr_spmm") != path
     monkeypatch.undo()
@@ -200,8 +193,8 @@ def test_library_path_keys_on_source_and_flags(monkeypatch, tmp_path):
     before = {name: _build.library_path(name) for name in names}
     assert before["bsr_spmm"] == path  # the same bytes give the same name
     # each header edit renames exactly the libraries that include it
-    for header_name, includers in (("bsr_stream.cuh", {"gcn_fused"}),
-                                   ("csr_gather.cuh", {"bsr_spmm", "gcn_fused_bwd"})):
+    for header_name, includers in (("gather_mma.cuh", {"gcn_fused", "gcn_fused_bwd"}),
+                                   ("csr_gather.cuh", set(names))):
         header = csrc / header_name
         header.write_bytes(header.read_bytes() + b"\n// edited\n")
         after = {name: _build.library_path(name) for name in names}
