@@ -19,8 +19,11 @@ per phase:
    graph's forward and transposed directions at d 128 and 256, f32 and bf16,
    tile 256 with an integer threshold, an all-strips tiling, a hub graph
    (hubness 0.5, rows of up to ~170 entries), and small graphs against a
-   dense float64 product, one of them with a row of 1,500 entries; and that
-   each edge form holds exactly its blocks' nonzeros;
+   dense float64 product, one of them with a row of 1,500 entries; widths
+   that are not a multiple of 4 (d 1,850, 925, 6 and 1: the float2 and
+   scalar paths), f32 and bf16, on the bench graph against the plain version
+   and on a small graph against float64; and that each edge form holds
+   exactly its blocks' nonzeros;
 4. the SpmmBSR gradient against the plain version's autograd;
 5. the unfused main path at bench.py's full width (N_PAD 50,176, d 128, 919
    classes, 2 layers, 2 strands, SGD lr 0.25): one kernel-path train step
@@ -47,18 +50,41 @@ per phase:
    functions of a group timed in turns: B1, B2 and B3 per launch with CUDA
    events, their plain versions and a library yardstick the port never
    calls (torch.sparse.mm over CSR, composed with the epilogue's ops for
-   B2/B3), and B2's and B3's gather and epilogue apart; each kernel's share
+   B2/B3), and B2's and B3's gather and epilogue apart; each kernel's device
+   time per launch from torch.profiler (the event loops include the host's
+   launch gaps when the host is slow); each kernel's share
    of its bound (what the data needs: the edge list, the dense arrays,
    2 nnz d operations plus the epilogue GEMM at 3xTF32's rate); the train
    and eval steps, unfused and fused, on the host clock;
-11. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+11. the window models (Expecto, DeepSEA, DanQ) at full width (seq 2,000,
+   919 labels, d_model 128) on the card against the same weights on the
+   CPU: a NonStrandSpecific eval forward of 8 sequences, and one train step
+   on a batch of 4 with dropout 0: in float64 on the card against float64
+   on the CPU (every gradient), and in f32 on the card against float64 (the
+   loss, and every gradient but Expecto's below bn3, which pass back through
+   train-mode BatchNorms over near-constant channels and land up to ~1e-1 of
+   scale from float64 in f32 on any device); this holds the f32 parity mode
+   (TF32 and cuDNN off) faithful and the layouts right on the card;
+12. the full-width pretrain step (Expecto at the CLI's defaults: batch 64,
+   both strands, Adam lr 2e-4, dropout on) on the host clock, median
+   (min-max) of 5 loops of 5 steps, windows/s, the eval step and the peak
+   device memory; Expecto's step also with cuDNN on (TF32 off) and in the
+   fast mode (cuDNN and TF32); DeepSEA and DanQ at the same shapes;
+13. the three-mode pipeline through the CLI on a world of seq 2,000 and 919
+   labels written with the port's savers (train chr2 and chr4, 2,048
+   windows each; valid chr3 and test chr1, 1,024 each; Hi-C edges
+   make_hic_edges(n, 5n)): Expecto -pretrain -epochs 2, -save_feats, then
+   -load_pretrained -epochs 2 -gcn_fused on, warm-started (B2 and B3
+   launches counted); then DanQ -pretrain -epochs 1 and -save_feats (925
+   columns), whose finetune stops at the warm start as the reference's does;
+14. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a non-zero exit code.
 
-``python3 chip_smoke.py --profile`` adds to phase 10 a torch.profiler trace
-of 3 train steps of each path: device time per step by kernel, and the
-device's idle share of the step.
+``python3 chip_smoke.py --profile`` adds to phases 10 and 12 a
+torch.profiler trace of 3 train steps of each path: device time per step by
+kernel or kernel group, and the device's idle share of the step.
 """
 
 import argparse
@@ -93,6 +119,24 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TF32X3_FLOPS = 495e12 / 3
 # kernel vs plain version: f32 sums of the same products in another order
 ATOL, RTOL = 1e-5, 1e-5
+# the window stage at the CLI's defaults (config.py): seq 2,000, batch 64,
+# Adam lr 2e-4; the pipeline's world, per split {chrom: (windows, seed)}
+SEQ_LEN, WINDOW_BATCH, WINDOW_LR = 2000, 64, 2e-4
+WINDOW_MODELS = ("expecto", "deepsea", "danq")
+PIPELINE_SPLITS = {"train": {"chr2": 2048, "chr4": 2048}, "valid": {"chr3": 1024},
+                   "test": {"chr1": 1024}}
+# profile groups of the window step, by words in the kernel's name
+WINDOW_PROFILE_GROUPS = (
+    ("BatchNorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "bn_")),
+    ("convolution", ("conv", "fprop", "dgrad", "wgrad", "winograd", "implicit")),
+    ("im2col/col2im", ("im2col", "col2im")),
+    ("LSTM", ("lstm", "rnn", "persist")),
+    ("GEMM", ("gemm", "cutlass", "cublas")),
+    ("pooling", ("pool",)),
+    ("reductions", ("reduce",)),
+    ("optimizer", ("adam", "multi_tensor", "foreach")),
+    ("elementwise", ("elementwise",)),
+)
 # profile groups, by words in the kernel's name (first match wins)
 PROFILE_GROUPS = (
     ("B1 bsr_spmm", ("bsr_spmm",)),
@@ -139,6 +183,27 @@ def cuda_ms(fns, iters=20, repeats=5, warmup=3):
             torch.cuda.synchronize()
             times[name].append(start.elapsed_time(end) / iters)
     return {name: sorted(t) for name, t in times.items()}
+
+
+def device_ms(fn, match, iters=20):
+    """Device time (ms) per call of ``fn``, summed over the kernels whose
+    name holds ``match``, from torch.profiler over ``iters`` calls after
+    warm-up: the kernel's own time, without the host's launch gaps, which
+    the CUDA-event loops of ``cuda_ms`` include when the host is slow."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and match in evt.key:
+            us = getattr(evt, "self_device_time_total", None)
+            total_us += evt.self_cuda_time_total if us is None else us
+    return total_us / iters / 1e3
 
 
 def spread(times):
@@ -298,10 +363,10 @@ def write_cli_world(root, argv):
     return cfg
 
 
-def profile_steps(step, t_step_ms, steps=3):
+def profile_steps(step, t_step_ms, steps=3, groups=PROFILE_GROUPS):
     """Device time per step by kernel over ``steps`` calls of ``step``, and
     the device's idle share of ``t_step_ms`` (a step timed without the
-    profiler)."""
+    profiler), summed by ``groups``."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
@@ -323,17 +388,121 @@ def profile_steps(step, t_step_ms, steps=3):
         return
     log(f"  profile of {steps} train steps: device busy {busy:.4f} ms per step of "
         f"{t_step_ms:.4f} ms; idle share {max(0.0, 1 - busy / t_step_ms):.3f}")
-    groups = {}
+    sums = {}
     for ms, key, count in rows:
         name = key.lower()
-        group = next((g for g, words in PROFILE_GROUPS if any(w in name for w in words)),
-                     "other")
-        t, n = groups.get(group, (0.0, 0))
-        groups[group] = (t + ms, n + count)
-    for group, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        group = next((g for g, words in groups if any(w in name for w in words)), "other")
+        t, n = sums.get(group, (0.0, 0))
+        sums[group] = (t + ms, n + count)
+    for group, (ms, count) in sorted(sums.items(), key=lambda kv: -kv[1][0]):
         log(f"    {group}: {ms:.4f} ms/step ({100 * ms / busy:.1f}%), {count} launches/step")
     for ms, key, count in rows[:12]:
         log(f"    {ms:9.4f} ms/step {100 * ms / busy:5.1f}%  x{count:<4} {key[:90]}")
+
+
+def no_dropout(model):
+    """p = 0 on every nn.Dropout and on the LSTM (the window models' rates are
+    the architecture's, with no flag to turn them off)."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+        elif isinstance(m, torch.nn.LSTM):
+            m.dropout = 0.0
+    return model
+
+
+def train_grads(model, tokens, targets, comp, dtype=torch.float64):
+    """The window train step's loss and gradients in ``dtype`` on ``comp``'s
+    device, the BCE included (the port's bce_with_logits computes in f32):
+    ``model`` (a NonStrandSpecific) is cast in place and left holding the
+    grads."""
+    model.to(dtype).train()
+    model.zero_grad(set_to_none=True)
+    _, _, x = model(torch.as_tensor(tokens, device=comp.device), comp)
+    z = torch.as_tensor(targets, dtype=dtype, device=comp.device)
+    loss = (x.clamp(min=0) - x * z + torch.log1p(torch.exp(-x.abs()))).mean()
+    loss.backward()
+    return loss.item()
+
+
+def window_flops(model, batch):
+    """Multiply-add operations x 2 of one forward of ``model`` (a window model)
+    over ``batch`` sequences, counted from the shapes its convolutions,
+    Linears and LSTM see (one forward on the card at batch 2, scaled)."""
+    macs = []
+
+    def hook(mod, inputs, out):
+        if isinstance(mod, torch.nn.Conv1d):
+            macs.append(out.numel() * mod.in_channels * mod.kernel_size[0])
+        elif isinstance(mod, torch.nn.Linear):
+            macs.append(out.numel() * mod.in_features)
+        elif isinstance(mod, torch.nn.LSTM):
+            b, t, _ = inputs[0].shape  # batch-first
+            per_step = sum(p.numel() for n, p in mod.named_parameters() if n.startswith("weight"))
+            macs.append(b * t * per_step)
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv1d, torch.nn.Linear, torch.nn.LSTM))]
+    was_training = model.training
+    try:
+        with torch.no_grad():
+            model.eval()(torch.zeros((2, model.seq_length), dtype=torch.long,
+                                     device=next(model.parameters()).device))
+    finally:
+        model.train(was_training)
+        for h in handles:
+            h.remove()
+    return 2 * sum(macs) * batch / 2
+
+
+def write_pipeline_world(argv):
+    """The pipeline's inputs: the dataset file (seq 2,000, 919 labels,
+    make_window_dataset) and per split a Hi-C contact list per chromosome
+    (make_hic_edges(n, 5n)), written with the port's savers. Returns the
+    splits."""
+    from chromegcn_tpu_torch.data.artifact import save_dataset, save_graph_edges
+    from chromegcn_tpu_torch.data.synthetic import make_hic_edges, make_window_dataset
+    from chromegcn_tpu_torch.main import build_parser, config_from_args
+
+    cfg = config_from_args(build_parser().parse_args(argv))
+    os.makedirs(cfg.dataset_dir, exist_ok=True)
+    os.makedirs(cfg.graph_root, exist_ok=True)
+    splits = {}
+    for i, (split, chroms) in enumerate(PIPELINE_SPLITS.items()):
+        splits[split] = make_window_dataset(chroms, n_targets=NCLASS, seq_length=SEQ_LEN, seed=i)
+        save_graph_edges(cfg.graph_path(split), {
+            chrom: make_hic_edges(n, 5 * n, seed=10 * i + j)
+            for j, (chrom, n) in enumerate(chroms.items())})
+    save_dataset(cfg.data_path, splits)
+    return splits
+
+
+def cli_config(argv):
+    from chromegcn_tpu_torch.main import build_parser, config_from_args
+
+    return config_from_args(build_parser().parse_args(argv))
+
+
+def run_cli(cli_main, argv):
+    """``cli_main(argv)`` on the card; returns (its printed lines, seconds)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    torch.cuda.synchronize()
+    return buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def read_logs(run_dir):
+    logs = {}
+    for split in ("train", "valid", "test"):
+        with open(os.path.join(run_dir, f"{split}.log")) as f:
+            logs[split] = [[float(v) for v in line.split(",")] for line in f]
+    return logs
 
 
 def main():
@@ -483,6 +652,32 @@ def main():
     errs["long_row"] = compare(f"dense 2048, a row of {int(m.row_ptr.diff().max())} entries, "
                                f"d={D} vs float64 (atol of scale)", bsr_matmul(m, x), ref,
                                scaled=True)
+    # widths that are not a multiple of 4: x's rows are then 8-byte (d % 4
+    # == 2, float2 loads) or 4-byte (odd d, scalar loads) aligned
+    odd_widths = (1850, 925, 6, 1)
+    for d in odd_widths:
+        for key in ("f32", "bf16"):
+            m = ops[key].fwd
+            x = randn(m.n_cols, d)
+            ref = bsr_matmul_plain(m, x)
+            poison_allocator((m.n_rows, d))
+            errs[f"{key}.fwd.d{d}"] = compare(f"{key} fwd d={d}", bsr_matmul(m, x), ref)
+            del x, ref
+        rng = np.random.default_rng(d)
+        dense = (rng.random((1024, 1024)) < 0.01) * rng.random((1024, 1024))
+        dense[512:640] = 0.0
+        g = from_dense(dense, device=cuda)
+        x = randn(1024, d)
+        for key in ("float32", "bfloat16"):
+            m = bsr_from_graph(g, min_edges_per_tile=4, dtype=key, device=cuda).fwd
+            # the bf16 kernel multiplies bf16 values by x rounded to bf16
+            a64, x64 = to_dense(g).double(), x.double()
+            if key == "bfloat16":
+                a64, x64 = a64.bfloat16().double(), x.bfloat16().double()
+            poison_allocator((1024, d))
+            errs[f"dense.{key}.d{d}"] = compare(
+                f"dense 1024 {key} d={d} vs float64 (atol of scale)", bsr_matmul(m, x),
+                (a64 @ x64).float(), scaled=True)
     torch.cuda.synchronize()
 
     # ---- 4. SpmmBSR gradient ----
@@ -767,7 +962,12 @@ def main():
         f"{100 * shares['B1 f32 d=128']:.1f}% of it, torch.sparse.mm at {100 * b_ms / t_lib:.1f}%")
     log(f"  block form (not the bound): {elems} live block elements, "
         f"{block_bytes / 1e6:.1f} MB with their indices, for {ne} edges")
-    for key, d in (("f32", 2 * D), ("bf16", D), ("bf16", 2 * D), ("hub", D)):
+    dev_b1 = {d: device_ms(lambda: bsr_matmul(op.fwd, xd), "bsr_spmm_kernel")
+              for d, xd in ((D, x), (1850, randn(N_PAD, 1850)))}
+    log(f"  B1 f32 fwd device time per launch (torch.profiler, 20 launches): d=128 "
+        f"{dev_b1[D]:.4f} ms, d=1850 {dev_b1[1850]:.4f} ms")
+    for key, d in (("f32", 2 * D), ("bf16", D), ("bf16", 2 * D), ("hub", D), ("f32", 1850),
+                   ("f32", 925)):
         m = ops[key].fwd
         xd = randn(N_PAD, d)
         tk = cuda_ms({key: lambda: bsr_matmul(m, xd)})[key]
@@ -812,6 +1012,9 @@ def main():
             f"library composition at {100 * fb_ms / ms_lib:.1f}%; record, not the bound: "
             f"with the GEMM at f32 FFMA's 67 TFLOP/s it would read {ffma_ms:.4f} ms by "
             f"{ffma_by}")
+    log(f"  device time per launch (torch.profiler, 20 launches): B2 "
+        f"{device_ms(lambda: fused_fwd(op.fwd, x, w, b), 'gcn_fused_kernel'):.4f} ms, B3 "
+        f"{device_ms(lambda: fused_bwd(op.bwd, ds, dx_dir, w), 'gcn_fused_bwd_kernel'):.4f} ms")
     for key, kind, direction, gemm in (
             ("B2", "fwd", "op.fwd", "torch.tanh(torch.addmm(b, h, w))"),
             ("B3", "bwd", "op.bwd", "torch.addmm(dx_dir, h, w.T)")):
@@ -851,7 +1054,241 @@ def main():
         profile_steps(lambda: chrome_train_step(state_fused, x_f, x_r, graph_bsr, targets,
                                                 gen_step), t_fused_step)
 
-    # ---- 11. result ----
+    # ---- 11. the window models on the card against the CPU ----
+    from chromegcn_tpu_torch.data.constants import SRC_VOCAB
+    from chromegcn_tpu_torch.models.window import make_window_model
+    from chromegcn_tpu_torch.ops.seq import complement_permutation
+    from chromegcn_tpu_torch.train.pretrain import (
+        create_window_state, window_eval_step, window_train_step,
+    )
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    comp = {dev: torch.as_tensor(complement_permutation(SRC_VOCAB), device=dev)
+            for dev in (cpu, cuda)}
+    log(f"[11 window models] seq {SEQ_LEN}, {NCLASS} labels, d_model {D}: card vs CPU from "
+        "the same weights, in the f32 parity mode (TF32 and cuDNN off). Eval forward of 8 "
+        "sequences in f32 within 1e-4 of its scale of the CPU's. One train step on 4 (dropout "
+        "0): in float64 on the card, every grad within 1e-9 of its scale of float64 on the "
+        "CPU; in f32 on the card, the loss within rel 1e-4 of float64's and every grad within "
+        "1e-4 of its scale, but Expecto's below bn3 (reported)")
+    rng = np.random.default_rng(3)
+    tok8 = rng.integers(0, 5, size=(8, SEQ_LEN)).astype(np.int32)
+    tgt4 = (rng.random((4, NCLASS)) < 0.05).astype(np.float32)
+    mask4 = np.ones(4, bool)
+    for name in WINDOW_MODELS:
+        states = {key: create_window_state(
+            no_dropout(make_window_model(name, NCLASS, seq_length=SEQ_LEN, d_model=D)),
+            "adam", WINDOW_LR, seed=0, device=cuda if key.startswith("card") else cpu)
+            for key in ("card", "card64", "cpu", "cpu64")}
+        require(not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32
+                     or torch.backends.cudnn.enabled),
+                "create_window_state left TF32 or cuDNN on")
+        got = window_eval_step(states["card"], tok8, np.zeros((8, NCLASS), np.float32),
+                               np.ones(8, bool), comp[cuda])
+        ref = window_eval_step(states["cpu"], tok8, np.zeros((8, NCLASS), np.float32),
+                               np.ones(8, bool), comp[cpu], device=cpu)
+        for what, a, b in zip(("loss", "probs", "x_fwd", "x_rev"), got, ref):
+            err, scale = (a.cpu() - b).abs().max().item(), b.abs().max().item()
+            log(f"  {name} eval {what}: max_abs_err {err:.3e} ({err / scale:.2e} of scale; "
+                "tol 1e-4)")
+            require(bool(torch.isfinite(a).all()) and err <= 1e-4 * scale,
+                    f"{name}: the card's eval {what} disagrees with the CPU's")
+        loss = window_train_step(states["card"], tok8[:4], tgt4, mask4, comp[cuda])[1].item()
+        train_grads(states["card64"].model, tok8[:4], tgt4, comp[cuda])
+        loss64 = train_grads(states["cpu64"].model, tok8[:4], tgt4, comp[cpu])
+        rel = abs(loss - loss64) / abs(loss64)
+        log(f"  {name} train loss card {loss:.8f}, CPU float64 {loss64:.8f}: rel diff "
+            f"{rel:.2e} (tol 1e-4)")
+        require(rel <= 1e-4, f"{name}: the card's train-step loss disagrees with float64's")
+        held, below_bn, worst64 = [], [], 0.0
+        names = [n for n, _ in states["card"].model.named_parameters()]
+        # Expecto's gradients below bn3 pass back through train-mode BatchNorms
+        # over near-constant ReLU'd channels: ill-conditioned in f32 on any
+        # device (up to ~1e-1 of scale from float64 there, which this phase
+        # reports); the float64 comparison holds them
+        first_held = names.index("model.bn3.weight") if name == "expecto" else 0
+        for i, (pname, pg, p64g, p64) in enumerate(zip(
+                names, states["card"].model.parameters(), states["card64"].model.parameters(),
+                states["cpu64"].model.parameters())):
+            scale = p64.grad.abs().max().item()
+            err64 = (p64g.grad.cpu() - p64.grad).abs().max().item() / scale
+            require(err64 <= 1e-9, f"{name}: float64 grad {pname} is {err64:.2e} of its scale "
+                    "from the CPU's")
+            worst64 = max(worst64, err64)
+            err = (pg.grad.double().cpu() - p64.grad).abs().max().item() / scale
+            if i >= first_held:
+                require(err <= 1e-4, f"{name}: f32 grad {pname} is {err:.2e} of its scale "
+                        "from float64")
+                held.append((err, pname))
+            else:
+                below_bn.append((err, pname))
+        log(f"  {name} float64 grads card vs CPU: worst {worst64:.2e} of scale (tol 1e-9)")
+        log(f"  {name} f32 grads vs float64: {len(held)} held within 1e-4 of scale, worst "
+            f"{max(held)[1]} at {max(held)[0]:.2e}" + (
+                f"; below bn3 (reported): worst {max(below_bn)[1]} at {max(below_bn)[0]:.2e}"
+                if below_bn else ""))
+        # a record, not the port's mode: the same f32 grads through cuDNN
+        p64 = dict(states["cpu64"].model.named_parameters())
+        for mode, tf32 in (("cuDNN, TF32 off", False), ("cuDNN and TF32", True)):
+            st = create_window_state(
+                no_dropout(make_window_model(name, NCLASS, seq_length=SEQ_LEN, d_model=D)),
+                "adam", WINDOW_LR, seed=0, device=cuda)
+            torch.backends.cudnn.enabled = True
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                train_grads(st.model, tok8[:4], tgt4, comp[cuda], torch.float32)
+            finally:
+                torch.backends.cudnn.enabled = False
+                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
+            rec = [(((pg.grad.double().cpu() - p64[n].grad).abs().max()
+                     / p64[n].grad.abs().max()).item(), n)
+                   for n, pg in st.model.named_parameters()][first_held:]
+            log(f"  {name} f32 grads with {mode} (a record): worst {max(rec)[1]} at "
+                f"{max(rec)[0]:.2e} of scale")
+            del st
+        del states
+    log(f"  done in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 12. the full-width pretrain step ----
+    log(f"[12 pretrain step] {smi}; batch {WINDOW_BATCH} windows ({2 * WINDOW_BATCH} "
+        f"sequences with both strands), seq {SEQ_LEN}, {NCLASS} labels, Adam lr {WINDOW_LR}, "
+        "dropout on; host ms, median (min-max) of 5 loops of 5 steps")
+    rng = np.random.default_rng(4)
+    tok = torch.as_tensor(rng.integers(0, 5, size=(WINDOW_BATCH, SEQ_LEN)).astype(np.int32),
+                          device=cuda)
+    tgt = torch.as_tensor((rng.random((WINDOW_BATCH, NCLASS)) < 0.05).astype(np.float32),
+                          device=cuda)
+    mask = torch.ones(WINDOW_BATCH, dtype=torch.bool, device=cuda)
+    gen_w = torch.Generator(device=cuda).manual_seed(0)
+    for name in WINDOW_MODELS:
+        wstate = create_window_state(make_window_model(name, NCLASS, SEQ_LEN, D), "adam",
+                                     WINDOW_LR, seed=0, device=cuda)
+        flops = window_flops(wstate.model.model, 2 * WINDOW_BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fns = {
+            "train": lambda: window_train_step(wstate, tok, tgt, mask, comp[cuda], gen_w),
+            "eval": lambda: window_eval_step(wstate, tok, tgt, mask, comp[cuda]),
+        }
+        t = host_ms(fns)
+        peak = torch.cuda.max_memory_allocated()
+        t_train, t_eval = statistics.median(t["train"]), statistics.median(t["eval"])
+        # forward + backward ~ 3 forwards; f32 FFMA's peak, TF32 being off
+        t_bound = 3 * flops / PEAK_FLOPS[torch.float32] * 1e3
+        log(f"  {name}: train {spread(t['train'])} ms = "
+            f"{WINDOW_BATCH / t_train * 1e3:.1f} windows/s; eval {spread(t['eval'])} ms = "
+            f"{WINDOW_BATCH / t_eval * 1e3:.1f} windows/s; peak device memory "
+            f"{peak / 2**30:.2f} GiB; forward {flops / 1e9:.1f} GFLOP, train step ~3x = "
+            f"{3 * flops / 1e12:.2f} TFLOP, {3 * flops / t_train / 1e9:.1f} TFLOP/s, bound "
+            f"{t_bound:.1f} ms at f32's {PEAK_FLOPS[torch.float32] / 1e12:.0f} TFLOP/s "
+            f"({100 * t_bound / t_train:.1f}%)")
+        if name == "expecto":
+            # what f32-faithfulness costs: cuDNN with TF32 off (not f32-faithful
+            # in its backward convolutions), and the fast mode (cuDNN and TF32)
+            alt = {}
+            for mode, tf32 in (("cuDNN, TF32 off", False), ("cuDNN and TF32", True)):
+                torch.backends.cudnn.enabled = True
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+                try:
+                    alt[mode] = host_ms({"train": fns["train"]})["train"]
+                finally:
+                    torch.backends.cudnn.enabled = False
+                    torch.backends.cudnn.allow_tf32 = False
+                    torch.backends.cuda.matmul.allow_tf32 = False
+            log("  expecto train step in the other modes: " + "; ".join(
+                f"{mode} {spread(ts)} ms" for mode, ts in alt.items())
+                + f" (the port's f32 parity mode: {spread(t['train'])} ms)")
+            if args.profile:
+                log("  expecto train step:")
+                profile_steps(fns["train"], t_train, groups=WINDOW_PROFILE_GROUPS)
+        del wstate, fns
+    del tok, tgt, mask
+
+    # ---- 13. the pipeline through the CLI ----
+    work = tempfile.mkdtemp(prefix="pipeline_", dir=os.path.join(here, "build"))
+    try:
+        base = ["-dataroot", os.path.join(work, "data"), "-results_dir",
+                os.path.join(work, "results"), "-cell_type", "SYN", "-seq_length", str(SEQ_LEN),
+                "-batch_size", str(WINDOW_BATCH), "-adj_type", "hic"]
+        expecto = base + ["-window_model", "expecto", "-d_model", str(D)]
+        t0 = time.perf_counter()
+        splits = write_pipeline_world(expecto)
+        log(f"[13 pipeline] python -m chromegcn_tpu_torch.main, synthetic world "
+            f"{', '.join(f'{s} {chroms}' for s, chroms in PIPELINE_SPLITS.items())} windows, "
+            f"seq {SEQ_LEN}, {NCLASS} labels (~30% positive: make_window_dataset's motifs); "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        cfg_e = cli_config(expecto + ["-pretrain"])
+        modes = {"pretrain": ["-pretrain", "-epochs", "2"], "save_feats": ["-save_feats"],
+                 "finetune": ["-load_pretrained", "-epochs", "2", "-gcn_fused", "on"]}
+        pipe_counts = {}
+        for mode, extra in modes.items():
+            _build.LAUNCHES.clear()
+            out, secs = run_cli(cli_main, expecto + extra)
+            pipe_counts[mode] = dict(_build.LAUNCHES)
+            log(f"  expecto {' '.join(extra)}: {secs:.1f} s; launches {pipe_counts[mode]}")
+            for line in out:
+                if "warm-started" in line or "restored" in line or "epoch" in line:
+                    log(f"    {line}")
+            if mode == "pretrain":
+                logs = read_logs(cfg_e.stage1_run_dir)
+            elif mode == "finetune":
+                require(any("warm-started GCN head from CNN checkpoint" in l for l in out),
+                        "the finetune did not log its warm start")
+                logs = read_logs(cli_config(expecto + extra).run_dir)
+            else:
+                continue
+            for e, rows in enumerate(zip(*(logs[s] for s in ("train", "valid", "test")))):
+                log(f"    epoch {e + 1}: " + "; ".join(
+                    f"{s} loss {r[1]:.6f} meanAUC {r[3]:.4f}"
+                    for s, r in zip(("train", "valid", "test"), rows)))
+            require(all(len(v) == 2 for v in logs.values()), f"{mode} logged a wrong epoch count")
+            require(all(np.isfinite(r[1]) for v in logs.values() for r in v),
+                    f"non-finite {mode} loss")
+        require(len(read_logs(cfg_e.stage1_run_dir)["test"]) == 2,
+                "-save_feats did not keep the two pretrain rows of the stage-1 logs")
+        from chromegcn_tpu_torch.data.loader import load_chrom_features
+
+        for split, ds in splits.items():
+            feats = load_chrom_features(cfg_e.feature_path(split))
+            require(list(feats) == ds.chrom_order(), f"{split}: saved chromosomes out of order")
+            for chrom, cf in feats.items():
+                sel = ds.chroms == chrom
+                require(cf.forward.shape == cf.backward.shape == (int(sel.sum()), D)
+                        and np.isfinite(cf.forward).all() and np.isfinite(cf.backward).all(),
+                        f"{split} {chrom}: features of a wrong shape or non-finite")
+                require(np.array_equal(cf.starts, ds.starts[sel])
+                        and np.array_equal(cf.target, ds.targets[sel]),
+                        f"{split} {chrom}: features out of the windows' order")
+        log(f"  saved features: {D} columns per strand, every split's windows in order")
+        # per epoch: 2 train chromosomes x (4 B2 + 4 B3), 4 B2 per eval chromosome
+        require(pipe_counts["finetune"] == {"gcn_fused_fwd": 2 * (8 + 4 + 4),
+                                            "gcn_fused_bwd": 2 * 8},
+                "expected 16 B2 and 8 B3 launches per finetune epoch, and no B1")
+        require(not pipe_counts["pretrain"] and not pipe_counts["save_feats"],
+                "the window stage launched a GCN kernel")
+
+        danq = base + ["-window_model", "danq", "-d_model", "925"]
+        for extra in (["-pretrain", "-epochs", "1"], ["-save_feats"]):
+            _, secs = run_cli(cli_main, danq + extra)
+            log(f"  danq {' '.join(extra)}: {secs:.1f} s")
+        cfg_d = cli_config(danq + ["-save_feats"])
+        widths = {load_chrom_features(cfg_d.feature_path(s))[c].forward.shape[1]
+                  for s, chroms in PIPELINE_SPLITS.items() for c in chroms}
+        require(widths == {925}, f"DanQ's saved features are {widths} wide, not 925")
+        try:
+            run_cli(cli_main, danq + ["-load_pretrained", "-epochs", "1", "-gcn_fused", "on"])
+        except KeyError as e:
+            log(f"  danq -load_pretrained stops at the warm start, as the reference's does: "
+                f"KeyError {e}")
+            require("only Expecto" in str(e), "DanQ's finetune stopped with another KeyError")
+        else:
+            require(False, "DanQ's finetune ran past the warm start")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # ---- 14. result ----
     kernels = [{
         "name": "bsr_spmm",
         "route": "cuda",
@@ -882,7 +1319,7 @@ def main():
          "chromegcn_tpu/ops/gcn_fused.py:85"),
         ("gcn_fused_bwd", "chromegcn_tpu_torch/csrc/gcn_fused_bwd.cu",
          "chromegcn_tpu/ops/gcn_fused.py:206"))]
-    log(f"[11 done] in {time.perf_counter() - t_start:.1f} s")
+    log(f"[14 done] in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -25,6 +25,9 @@
 // - It reads 8 bytes per nonzero instead of ~50 stored block elements.
 // - One warp per row, lanes over d in float4s (d 128 is one float4 a lane;
 //   wider d takes a second float4, or a second column group of CTAs). A
+//   width that is not a multiple of 4 leaves x's rows 8- or 4-byte aligned:
+//   it takes float2s (d % 4 == 2) or scalars (odd d), up to 256 columns a
+//   warp as the float4 path, where the reference kernel takes any d. A
 //   row's (col, val) pairs arrive 32 at a time in one coalesced load and are
 //   broadcast by shuffle; 4 neighbours' 512-byte x rows are in flight before
 //   their FMAs (csr_gather.cuh).
@@ -47,53 +50,65 @@ constexpr int WARPS = 8;          // warps per CTA, one row each at a time
 constexpr int ROWS_PER_WARP = 2;  // a CTA covers WARPS * ROWS_PER_WARP consecutive rows
 constexpr int ROWS_PER_CTA = WARPS * ROWS_PER_WARP;
 
-template <typename T, int NCH>
+template <typename T, int NCH, int VEC>
 __global__ void __launch_bounds__(WARPS * WARP) bsr_spmm_kernel(
     const int* __restrict__ row_ptr, const int* __restrict__ col,
     const T* __restrict__ val, const float* __restrict__ x, float* __restrict__ out,
     int n_rows, int d) {
+  using V = typename Vec<VEC>::type;
+  constexpr int COLS = VEC * WARP;
   const int lane = threadIdx.x % WARP, warp = threadIdx.x / WARP;
-  const int c0 = blockIdx.y * NCH * LANE_COLS;
+  const int c0 = blockIdx.y * NCH * COLS;
   const int row0 = blockIdx.x * ROWS_PER_CTA;
 #pragma unroll 1
   for (int i = 0; i < ROWS_PER_WARP; ++i) {
     const int row = row0 + i * WARPS + warp;
     if (row >= n_rows) return;  // uniform across the warp
-    float4 acc[NCH];
-    gather_row<T, NCH>(row_ptr, col, val, x, d, row, c0, lane, acc);
+    V acc[NCH];
+    gather_row<T, NCH, VEC>(row_ptr, col, val, x, d, row, c0, lane, acc);
 #pragma unroll
     for (int j = 0; j < NCH; ++j) {
-      const int c = c0 + 4 * lane + LANE_COLS * j;
-      if (c < d) *reinterpret_cast<float4*>(out + (size_t)row * d + c) = acc[j];
+      const int c = c0 + VEC * lane + COLS * j;
+      if (c < d) *reinterpret_cast<V*>(out + (size_t)row * d + c) = acc[j];
     }
   }
 }
 
-template <typename T, int NCH>
+template <typename T, int NCH, int VEC>
 cudaError_t launch(const int* row_ptr, const int* col, const void* val, const float* x,
                    float* out, int n_rows, int d, cudaStream_t stream) {
   const dim3 grid((n_rows + ROWS_PER_CTA - 1) / ROWS_PER_CTA,
-                  (d + NCH * LANE_COLS - 1) / (NCH * LANE_COLS));
-  bsr_spmm_kernel<T, NCH><<<grid, WARPS * WARP, 0, stream>>>(
+                  (d + NCH * VEC * WARP - 1) / (NCH * VEC * WARP));
+  bsr_spmm_kernel<T, NCH, VEC><<<grid, WARPS * WARP, 0, stream>>>(
       row_ptr, col, static_cast<const T*>(val), x, out, n_rows, d);
   return cudaGetLastError();
+}
+
+// d up to 32 VEC: one vector a lane; wider: 256 columns a warp (two float4s,
+// four float2s or eight scalars a lane), over column groups of CTAs
+template <typename T, int VEC>
+int launch_vec(const int* row_ptr, const int* col, const void* val, const float* x,
+               float* out, int n_rows, int d, cudaStream_t s) {
+  if (d <= VEC * WARP) return (int)launch<T, 1, VEC>(row_ptr, col, val, x, out, n_rows, d, s);
+  return (int)launch<T, 8 / VEC, VEC>(row_ptr, col, val, x, out, n_rows, d, s);
 }
 
 template <typename T>
 int dispatch(const int* row_ptr, const int* col, const void* val, const float* x,
              float* out, int n_rows, int d, void* stream) {
-  if (n_rows <= 0 || d <= 0 || d % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (n_rows <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // d up to 128: one float4 a lane; wider: two, over column groups of 256
-  if (d <= LANE_COLS) return (int)launch<T, 1>(row_ptr, col, val, x, out, n_rows, d, s);
-  return (int)launch<T, 2>(row_ptr, col, val, x, out, n_rows, d, s);
+  // the widest load a row of x stays aligned for: x itself is 16-byte aligned
+  if (d % 4 == 0) return launch_vec<T, 4>(row_ptr, col, val, x, out, n_rows, d, s);
+  if (d % 2 == 0) return launch_vec<T, 2>(row_ptr, col, val, x, out, n_rows, d, s);
+  return launch_vec<T, 1>(row_ptr, col, val, x, out, n_rows, d, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// out (n_rows, d) = A @ x, x (n_cols, d), d a multiple of 4; A's row i holds
+// out (n_rows, d) = A @ x, x (n_cols, d) 16-byte aligned, any d >= 1; A's row i holds
 // the entries [row_ptr[i], row_ptr[i+1]) of col / val, columns ascending.
 // Returns cudaGetLastError() after the launch (0 on success).
 int bsr_spmm_f32(const int* row_ptr, const int* col, const void* val, const float* x,

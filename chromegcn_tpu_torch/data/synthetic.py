@@ -1,12 +1,72 @@
-"""Synthetic Hi-C contact lists at chromosome scale (port of
-chromegcn_tpu/data/synthetic.py:make_hic_edges, numpy code kept as is so the
-edge arrays come out equal)."""
+"""Synthetic window datasets and Hi-C contact lists (port of
+chromegcn_tpu/data/synthetic.py: ``make_window_dataset``,
+``encode_style_label_names``, ``make_hic_edges``; the numpy code is kept as
+is, so a seed gives the reference's arrays)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
+
+from chromegcn_tpu_torch.data.constants import EXTENDED_WINDOW_SIZE, SRC_VOCAB
+from chromegcn_tpu_torch.data.loader import WindowDataset
+
+
+def encode_style_label_names(n_targets: int, cell_type: str = "GM12878") -> List[str]:
+    """ENCODE-convention assay names in DeepSEA-like proportions (~125 DNase
+    / 690 TFBS / 104 histone per 919 targets), so the per-label-type metric
+    splits come out non-empty; the histone key is 'e116-h' for GM12878,
+    'e123-h' otherwise."""
+    eid = "e116" if cell_type == "GM12878" else "e123"
+    n_dnase = max(1, round(n_targets * 125 / 919)) if n_targets >= 3 else 1
+    n_hm = max(1, round(n_targets * 104 / 919)) if n_targets >= 3 else 1
+    n_tf = max(0, n_targets - n_dnase - n_hm)
+    names = [f"wgencodeawgdnasegm12878site{i}unipk" for i in range(n_dnase)]
+    names += [f"wgencodeawgtfbsgm12878tf{i}unipk" for i in range(n_tf)]
+    names += [f"{eid}-h3k{i}me" for i in range(n_hm)]
+    return names[:n_targets]
+
+
+def make_window_dataset(
+    n_per_chrom: Dict[str, int],
+    n_targets: int = 8,
+    seq_length: int = EXTENDED_WINDOW_SIZE,
+    seed: int = 0,
+    cell_type: str = "GM12878",
+) -> WindowDataset:
+    """Windows with learnable structure: each label fires (in ~30% of the
+    windows) on the presence of its own planted 6-mer motif."""
+    rng = np.random.default_rng(seed)
+    total = sum(n_per_chrom.values())
+    tokens = rng.integers(0, 4, size=(total, seq_length)).astype(np.int32)
+    motifs = rng.integers(0, 4, size=(n_targets, 6)).astype(np.int32)
+    targets = np.zeros((total, n_targets), dtype=np.uint8)
+
+    for t in range(n_targets):
+        has = rng.random(total) < 0.3
+        pos = rng.integers(0, seq_length - 6, size=total)
+        for i in np.nonzero(has)[0]:
+            tokens[i, pos[i] : pos[i] + 6] = motifs[t]
+        targets[has, t] = 1
+
+    chroms: List[str] = []
+    starts: List[int] = []
+    for chrom, n in n_per_chrom.items():
+        chroms.extend([chrom] * n)
+        starts.extend(range(0, n * 1000, 1000))
+
+    tgt_vocab = {
+        n: i for i, n in enumerate(encode_style_label_names(n_targets, cell_type))
+    }
+    return WindowDataset(
+        tokens=tokens,
+        targets=targets,
+        chroms=np.asarray(chroms, dtype=object),
+        starts=np.asarray(starts, dtype=np.int64),
+        src_vocab=dict(SRC_VOCAB),
+        tgt_vocab=tgt_vocab,
+    )
 
 
 def make_hic_edges(

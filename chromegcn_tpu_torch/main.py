@@ -1,11 +1,17 @@
 """CLI entry point of the PyTorch/CUDA port (port of chromegcn_tpu/main.py).
 
 The parser is the JAX package's, flag for flag (choices and defaults
-included), so a command line carries over. The port runs the finetune
-mode on the card:
+included), so a command line carries over. The port runs the reference's
+three modes on the card, one after the other:
 
+    python -m chromegcn_tpu_torch.main -pretrain -window_model expecto ...
+    python -m chromegcn_tpu_torch.main -save_feats -window_model expecto ...
     python -m chromegcn_tpu_torch.main -load_pretrained -chrome_model gcn \
-        -adj_type hic -d_model 128 -optim sgd -lr 0.25 -gcn_fused on ...
+        -adj_type hic -gcn_fused on ...
+
+The first trains the window CNN on the dataset file, the second dumps its
+features, and the third trains the GCN on them, its head warm-started from
+the CNN's checkpoint.
 
 Modes the port lacks raise NotImplementedError naming their ROADMAP item
 (train/runner.py). ``main(argv, device="cpu")`` runs the plain PyTorch

@@ -48,9 +48,10 @@ def _dropout(
 
 
 def _lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator]) -> None:
-    """flax's lecun_normal for a torch (out, in) Linear weight: truncated
-    normal on [-2, 2] std units, std sqrt(1/fan_in) corrected for truncation."""
-    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+    """flax's lecun_normal for a torch (out, in) Linear or (out, in, k) Conv1d
+    weight: truncated normal on [-2, 2] std units, std sqrt(1/fan_in)
+    (fan_in = in k) corrected for truncation."""
+    std = math.sqrt(1.0 / w[0].numel()) / 0.87962566103423978
     nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
 
 

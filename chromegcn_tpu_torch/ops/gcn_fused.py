@@ -67,6 +67,21 @@ def bwd_smem_bytes(d: int) -> int:
     return 4 * (_tile_floats(d) + 2 * _NC * (_KC + 4))
 
 
+def _check_fused_csr(m: BSRMatrix, x: torch.Tensor, smem_bytes, kernel: str) -> int:
+    """The edge-form checks of B2 or B3 (``kernel``), and the width's: a
+    multiple of 4 (the kernels read x and W in float4s) whose shared-memory
+    plan ``smem_bytes(d)`` fits one CTA. Returns d."""
+    d = _check_csr(m, x)
+    if d % 4 != 0:
+        raise ValueError(f"{kernel} needs d a multiple of 4, got {d}")
+    if smem_bytes(d) > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"{kernel}'s plan at d={d} takes {smem_bytes(d)} bytes of shared memory, "
+            f"over {SMEM_LIMIT}"
+        )
+    return d
+
+
 def fused_fits(op, d: int) -> bool:
     """Whether the fused kernels take this operator at width ``d``."""
     return (
@@ -129,12 +144,7 @@ def fused_fwd(m: BSRMatrix, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -
         return fused_fwd_plain(m, x, w, b)
     if x.device.type != "cuda":
         raise ValueError(f"fused_fwd runs on cuda or cpu tensors, got {x.device}")
-    d = _check_csr(m, x)
-    if fwd_smem_bytes(d) > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"B2's plan at d={d} takes {fwd_smem_bytes(d)} bytes of shared memory, "
-            f"over {SMEM_LIMIT}"
-        )
+    d = _check_fused_csr(m, x, fwd_smem_bytes, "B2")
     _check_dense("w", w, (d, d), x.device)
     _check_dense("b", b, (d,), x.device)
     lib = _kernel_lib()
@@ -162,12 +172,7 @@ def fused_bwd(
         return fused_bwd_plain(m, ds, dx_dir, w)
     if ds.device.type != "cuda":
         raise ValueError(f"fused_bwd runs on cuda or cpu tensors, got {ds.device}")
-    d = _check_csr(m, ds)
-    if bwd_smem_bytes(d) > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"B3's plan at d={d} takes {bwd_smem_bytes(d)} bytes of shared memory, "
-            f"over {SMEM_LIMIT}"
-        )
+    d = _check_fused_csr(m, ds, bwd_smem_bytes, "B3")
     _check_dense("w", w, (d, d), ds.device)
     _check_dense("dx_dir", dx_dir, (m.n_rows, d), ds.device)
     lib = _bwd_kernel_lib()

@@ -356,8 +356,8 @@ def _check_x(m: BSRMatrix, x: torch.Tensor) -> int:
     if x.dim() != 2 or x.shape[0] != m.n_cols:
         raise ValueError(f"x {tuple(x.shape)} does not match A's {m.n_cols} columns")
     d = x.shape[1]
-    if d == 0 or d % 4 != 0:
-        raise ValueError(f"the kernels need d a positive multiple of 4, got {d}")
+    if d == 0:
+        raise ValueError("the kernels need d >= 1, got 0")
     _check_dense("x", x, (m.n_cols, d), x.device)
     return d
 
@@ -378,9 +378,9 @@ def _check_csr(m: BSRMatrix, x: torch.Tensor) -> int:
 
 
 def bsr_matmul(m: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
-    """out = A @ x (f32 out). A CUDA tensor goes through the hand-written
-    row-gather kernel over the edge form (``csrc/bsr_spmm.cu``) or raises; a
-    CPU tensor takes the plain version. Counts each kernel launch in
+    """out = A @ x (f32 out), x (n_cols, d) for any d >= 1. A CUDA tensor goes
+    through the hand-written row-gather kernel over the edge form
+    (``csrc/bsr_spmm.cu``) or raises; a CPU tensor takes the plain version. Counts each kernel launch in
     ``_build.LAUNCHES['bsr_spmm']``."""
     if x.device.type == "cpu":
         return bsr_matmul_plain(m, x)

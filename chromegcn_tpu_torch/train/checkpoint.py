@@ -1,5 +1,6 @@
-"""Checkpoints of the chromosome stage (port of
-chromegcn_tpu/train/checkpoint.py, in torch's own format).
+"""Checkpoints of both stages (port of chromegcn_tpu/train/checkpoint.py,
+in torch's own format): the window model's in stage 1's run directory, the
+GCN's in the finetune run directory.
 
 A checkpoint is one ``torch.save`` file holding the model's ``state_dict``
 (parameters and BatchNorm running statistics), the optimizer's
@@ -30,7 +31,8 @@ def save_checkpoint(
     save_mode: str = "best",
     score: Optional[float] = None,
 ) -> str:
-    """Write ``state`` (a ChromeTrainState) and the epoch; returns the path."""
+    """Write ``state`` (a WindowTrainState or ChromeTrainState: its model
+    and optimizer) and the epoch; returns the path."""
     if save_mode == "all" and score is not None:
         name = f"ckpt_epoch{epoch}_score{100 * score:.3f}.pt"
     else:

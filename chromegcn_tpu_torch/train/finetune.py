@@ -57,6 +57,43 @@ def create_chrome_state(
     )
 
 
+def warm_start_head_from_window(chrome_model: nn.Module, window_state: Dict[str, torch.Tensor]) -> None:
+    """Initialize the GCN's output head and its BatchNorm from a trained
+    window model, in place: ``out`` from the classifier's weight and bias,
+    ``batch_norm`` from ``head_bn``'s weight, bias and running mean and var
+    (reference: finetune.py:51-73; main.py:78-81 copies the classifier and
+    the BatchNorm). ``window_state`` is the window model's ``state_dict``,
+    bare or wrapped in NonStrandSpecific (keys under ``model.``).
+
+    Only Expecto has both a ``classifier`` and a ``head_bn``: DeepSEA has no
+    ``head_bn`` and DanQ neither. The JAX package stops there with a
+    KeyError; so does this, naming what is missing."""
+    inner = {k[len("model."):] if k.startswith("model.") else k: v
+             for k, v in window_state.items()}
+    sources = {
+        "out.weight": "classifier.weight", "out.bias": "classifier.bias",
+        "batch_norm.weight": "head_bn.weight", "batch_norm.bias": "head_bn.bias",
+        "batch_norm.running_mean": "head_bn.running_mean",
+        "batch_norm.running_var": "head_bn.running_var",
+    }
+    missing = [src for src in sources.values() if src not in inner]
+    if missing:
+        raise KeyError(
+            f"the GCN head's warm start reads the window model's classifier and head_bn, "
+            f"which only Expecto has; this window checkpoint lacks {missing}"
+        )
+    target = chrome_model.state_dict()
+    for dst, src in sources.items():
+        if target[dst].shape != inner[src].shape:
+            raise ValueError(
+                f"warm start: {src} {tuple(inner[src].shape)} does not fit {dst} "
+                f"{tuple(target[dst].shape)}"
+            )
+    with torch.no_grad():
+        for dst, src in sources.items():
+            target[dst].copy_(inner[src])
+
+
 def _on(device: torch.device, *arrays):
     return tuple(torch.as_tensor(a, device=device) for a in arrays)
 

@@ -1,8 +1,10 @@
-"""The port's finetune CLI (chromegcn_tpu_torch.main, config, train/runner,
-train/checkpoint, utils/metrics + evals, the feature and graph files)
-against the JAX package's, on the CPU: the same parser and Config, the same
-metrics, checkpoint save/resume/-load_gcn, the modes the port lacks, and a
-2-epoch finetune run through both packages' ``main``."""
+"""The port's CLI (chromegcn_tpu_torch.main, config, train/runner,
+train/checkpoint, utils/metrics + evals, the dataset, feature and graph
+files) against the JAX package's, on the CPU: the same parser and Config,
+the same metrics, checkpoint save/resume/-load_gcn, the modes the port
+lacks, the warm start from stage 1, a 2-epoch finetune run, and the whole
+three-mode pipeline (-pretrain, -save_feats, -load_pretrained) through both
+packages' ``main``."""
 
 import dataclasses
 import os
@@ -17,22 +19,28 @@ from chromegcn_tpu import main as jmain
 from chromegcn_tpu.data import artifact as jartifact
 from chromegcn_tpu.data import loader as jloader
 from chromegcn_tpu.models.chrome import make_chrome_model as jax_make_chrome_model
+from chromegcn_tpu.models.window import make_window_model as jax_make_window_model
 from chromegcn_tpu.train import finetune as jft
 from chromegcn_tpu.train.optim import make_optimizer as jax_make_optimizer
+from chromegcn_tpu.train.pretrain import create_window_state as jax_create_window_state
 from chromegcn_tpu.utils import evals as jevals
 from chromegcn_tpu_torch import config as tconfig
 from chromegcn_tpu_torch import main as tmain
 from chromegcn_tpu_torch.data import artifact as tartifact
 from chromegcn_tpu_torch.data import loader as tloader
-from chromegcn_tpu_torch.data.synthetic import make_hic_edges
+from chromegcn_tpu_torch.data.constants import SRC_VOCAB
+from chromegcn_tpu_torch.data.synthetic import make_hic_edges, make_window_dataset
 from chromegcn_tpu_torch.models import chrome as tchrome
+from chromegcn_tpu_torch.models.window import make_window_model
 from chromegcn_tpu_torch.ops import _build
 from chromegcn_tpu_torch.ops.gcn_fused import fused_gated_layer
 from chromegcn_tpu_torch.train import checkpoint as tckpt
 from chromegcn_tpu_torch.train import finetune as tft
+from chromegcn_tpu_torch.train import pretrain as tpt
 from chromegcn_tpu_torch.train import runner as trunner
 from chromegcn_tpu_torch.utils import evals as tevals
-from chromegcn_tpu_torch.utils.convert import chromegcn_state_dict
+from chromegcn_tpu_torch.utils.convert import chromegcn_state_dict, window_state_dict
+from test_torch_window import jax_no_dropout, no_dropout  # noqa: F401 (a fixture)
 
 CPU = "cpu"
 D, NTARGETS = 32, 5
@@ -261,25 +269,81 @@ UNPORTED = [
     (["-tp_devices", "4"], "A13"),
     (["-spmm_form", "hybrid"], "A9"),
 ]
+# ROADMAP items that have landed: their modes run through the port
+PORTED = {"A10"}
+
+
+def _window_argv(root, *extra):
+    return ["-dataroot", str(root / "data"), "-results_dir", str(root / "results"),
+            "-cell_type", "SYN", "-seq_length", "400", "-batch_size", "8", "-d_model", "8",
+            *extra]
+
+
+def _write_window_world(root):
+    """The dataset file of a tiny window world, written with the port's saver."""
+    cfg = tmain.config_from_args(tmain.build_parser().parse_args(_window_argv(root)))
+    os.makedirs(cfg.dataset_dir, exist_ok=True)
+    tartifact.save_dataset(cfg.data_path, {
+        split: make_window_dataset({chrom: 10}, n_targets=3, seq_length=400, seed=i)
+        for i, (split, chrom) in enumerate((("train", "chr2"), ("valid", "chr3"),
+                                            ("test", "chr1")))})
+    return cfg
 
 
 @pytest.mark.parametrize("extra,item", UNPORTED, ids=lambda v: " ".join(v) if isinstance(v, list) else v)
 def test_unported_modes_name_their_roadmap_item(tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tmain.main(_argv(tmp_path, *extra), device=CPU)
+    """A mode the port lacks raises NotImplementedError naming its ROADMAP
+    item. A10 has landed: -pretrain trains and checkpoints the window CNN,
+    and -save_feats, which stops without a stage-1 checkpoint, then dumps
+    every split's features."""
+    if item not in PORTED:
+        with pytest.raises(NotImplementedError, match=item):
+            tmain.main(_argv(tmp_path, *extra), device=CPU)
+        return
+    cfg = _write_window_world(tmp_path)
+    argv = _window_argv(tmp_path, *extra)
+    if extra == ["-save_feats"]:
+        with pytest.raises(FileNotFoundError, match="save_feats requires a trained window"):
+            tmain.main(argv, device=CPU)
+        tmain.main(_window_argv(tmp_path, "-pretrain", "-epochs", "1"), device=CPU)
+        tmain.main(argv, device=CPU)
+        for split, chrom in (("train", "chr2"), ("valid", "chr3"), ("test", "chr1")):
+            feats = tloader.load_chrom_features(cfg.feature_path(split))
+            assert list(feats) == [chrom] and feats[chrom].forward.shape == (10, 8)
+    else:
+        tmain.main(argv + ["-epochs", "1"], device=CPU)
+        assert set(tckpt.restore_checkpoint(cfg.stage1_run_dir)) == {
+            "model", "optimizer", "epoch", "score"}
+        assert _log(dataclasses.replace(cfg, load_pretrained=False), "train").shape == (1, 6)
 
 
 @pytest.mark.parametrize("kind", ["orbax", "port"])
-def test_stage1_checkpoint_warm_start_raises(tmp_path, kind):
-    """The CNN warm start (runner.py:427-434) is not ported; a stage-1
-    checkpoint of either package stops the run instead of being skipped."""
+def test_stage1_checkpoint_warm_start_raises(tmp_path, kind, capsys):
+    """A stage-1 checkpoint warm-starts the GCN head (runner.py:427-434). The
+    port's own ``ckpt.pt`` does: the GCN's out and batch_norm start as the
+    window model's classifier and head_bn. The JAX package's orbax
+    directory cannot be read without jax, and stops the run instead of
+    being skipped."""
     cfg = _write_world(tmp_path)
     if kind == "orbax":
         os.makedirs(os.path.join(cfg.stage1_run_dir, "ckpt"))
-    else:
-        open(os.path.join(cfg.stage1_run_dir, tckpt.CKPT), "wb").close()
-    with pytest.raises(NotImplementedError, match="A10"):
-        tmain.main(_argv(tmp_path), device=CPU)
+        with pytest.raises(NotImplementedError, match="orbax checkpoint"):
+            tmain.main(_argv(tmp_path), device=CPU)
+        return
+    wstate = tpt.create_window_state(make_window_model("expecto", NTARGETS, d_model=D),
+                                     seed=3, device=CPU)
+    with torch.no_grad():
+        wstate.model.model.head_bn.running_mean.normal_(generator=torch.Generator().manual_seed(0))
+    tckpt.save_checkpoint(cfg.stage1_run_dir, wstate, epoch=1)
+    state, _ = trunner.run(dataclasses.replace(cfg, epochs=0), device=CPU)
+    assert "warm-started GCN head from CNN checkpoint" in capsys.readouterr().out
+    window = wstate.model.model
+    for got, want in ((state.model.out.weight, window.classifier.weight),
+                      (state.model.out.bias, window.classifier.bias),
+                      (state.model.batch_norm.weight, window.head_bn.weight),
+                      (state.model.batch_norm.running_mean, window.head_bn.running_mean),
+                      (state.model.batch_norm.running_var, window.head_bn.running_var)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_runner_forms_and_precision(tmp_path):
@@ -298,6 +362,7 @@ def test_runner_forms_and_precision(tmp_path):
             trunner.apply_matmul_precision(dataclasses.replace(cfg, matmul_precision=precision))
             assert torch.backends.cuda.matmul.allow_tf32 is allow
             assert torch.backends.cudnn.allow_tf32 is allow
+            assert torch.backends.cudnn.enabled is allow
     finally:
         trunner.apply_matmul_precision(cfg)
     with pytest.raises(trunner.NonFiniteLossError):
@@ -346,3 +411,98 @@ def test_finetune_cli_matches_jax(tmp_path, monkeypatch):
         np.testing.assert_allclose(ours[:, 1], ref[:, 1], rtol=1e-5, err_msg=f"{split} loss")
         np.testing.assert_allclose(ours[:, 2:], ref[:, 2:], rtol=0, atol=1e-4,
                                    err_msg=f"{split} mAP/meanAUC/meanAUPR/meanFDR")
+
+
+# ---------------------------------------------------------------------------
+# the three-mode pipeline
+# ---------------------------------------------------------------------------
+
+
+def test_pipeline_cli_matches_jax(tmp_path, monkeypatch, capsys, jax_no_dropout):
+    """The JAX CLI's world (tests/test_cli.py:68-88: seq 400, 4 targets,
+    batch 8, -d_model 16, -adj_type constant, Adam) through both packages'
+    ``main``: -pretrain -epochs 2, -save_feats, then -load_pretrained
+    -epochs 2 -gcn_dropout 0.0, warm-started from stage 1. Both start from
+    JAX's initial weights (split(PRNGKey(seed)) as runner.py:72-73 and
+    :390-392 draw them), with dropout out and no shuffle. Per-epoch losses
+    agree to rel 1e-4, the metrics to 1e-4 and the saved features to 1e-4;
+    the logs have the same shape, the two pretrain rows surviving
+    -save_feats.
+
+    lr is 1e-6, not test_cli.py's 1e-3. At 1e-3 (or SGD at 1e-3) this
+    40-window world trains chaotically, and the two frameworks' f32
+    rounding drifts their losses apart by ~1e-2 within 3 steps. At 1e-5 the
+    losses stay within ~3e-6, but Adam moves each weight whose gradient is
+    at rounding level by ~lr either way, and after 10 steps the conv biases
+    of near-dead channels move the saved features by ~1.2e-4 of their
+    scale (~5e-5 at 1e-6, ~1e-6 before any step). test_torch_pretrain.py
+    holds each step to JAX's at Adam lr 1e-3."""
+    dataroot = tmp_path / "data"
+    splits = {
+        "train": make_window_dataset({"chr2": 24, "chr4": 16}, n_targets=4, seq_length=400, seed=0),
+        "valid": make_window_dataset({"chr3": 16}, n_targets=4, seq_length=400, seed=1),
+        "test": make_window_dataset({"chr1": 16}, n_targets=4, seq_length=400, seed=2),
+    }
+    os.makedirs(dataroot / "SYN" / "1000")
+    tartifact.save_dataset(str(dataroot / "SYN" / "1000" / "dataset.npz"), splits)
+
+    def argv(results, *extra):
+        return ["-dataroot", str(dataroot), "-results_dir", str(tmp_path / results),
+                "-cell_type", "SYN", "-batch_size", "8", "-seq_length", "400", "-d_model", "16",
+                "-optim", "adam", "-lr", "1e-06", "-adj_type", "constant", *extra]
+
+    # the JAX runs' initial states, carried into the port's state creation
+    _, init_rng = jax.random.split(jax.random.PRNGKey(0))
+    jw = jax_create_window_state(jax_make_window_model("expecto", 4, seq_length=400, d_model=16),
+                                 jax_make_optimizer("adam", 1e-6), init_rng, 400, dict(SRC_VOCAB))
+    window_init = window_state_dict(jax.device_get(jw.params), jax.device_get(jw.batch_stats))
+    jc = jft.create_chrome_state(jax_make_chrome_model("gcn", nclass=4, dropout=0.0, nfeat=16),
+                                 jax_make_optimizer("adam", 1e-6), init_rng, nfeat=16)
+    chrome_init = chromegcn_state_dict(jax.device_get(jc.params), jax.device_get(jc.batch_stats))
+    create_window, create_chrome = tpt.create_window_state, tft.create_chrome_state
+
+    def window_from_jax(model, *args, **kwargs):
+        state = create_window(model, *args, **kwargs)
+        state.model.load_state_dict(window_init)
+        no_dropout(state.model)
+        return state
+
+    def chrome_from_jax(model, *args, **kwargs):
+        state = create_chrome(model, *args, **kwargs)
+        state.model.load_state_dict(chrome_init)
+        return state
+
+    monkeypatch.setattr(tpt, "create_window_state", window_from_jax)
+    monkeypatch.setattr(tft, "create_chrome_state", chrome_from_jax)
+    modes = (["-pretrain", "-epochs", "2"], ["-save_feats"],
+             ["-load_pretrained", "-epochs", "2", "-gcn_dropout", "0.0"])
+    for extra in modes:
+        jmain.main(argv("jax", *extra))
+        tmain.main(argv("port", *extra), device=CPU)
+    out = capsys.readouterr().out
+    assert out.count("warm-started GCN head from CNN checkpoint") == 2  # both packages
+
+    def cfg(results, *extra):
+        return tmain.config_from_args(tmain.build_parser().parse_args(argv(results, *extra)))
+
+    for stage_extra in ((), modes[2]):
+        ours_cfg, ref_cfg = cfg("port", *stage_extra), cfg("jax", *stage_extra)
+        for split in ("train", "valid", "test"):
+            ours, ref = _log(ours_cfg, split), _log(ref_cfg, split)
+            assert ours.shape == ref.shape == (2, 6), (stage_extra, split)
+            np.testing.assert_allclose(ours[:, 1], ref[:, 1], rtol=1e-4,
+                                       err_msg=f"{stage_extra} {split} loss")
+            np.testing.assert_allclose(ours[:, 2:], ref[:, 2:], rtol=0, atol=1e-4,
+                                       err_msg=f"{stage_extra} {split} metrics")
+    assert tckpt.checkpoint_exists(cfg("port").stage1_run_dir)
+    for split in ("train", "valid", "test"):
+        ours = tloader.load_chrom_features(cfg("port").feature_path(split))
+        ref = jloader.load_chrom_features(cfg("jax").feature_path(split))
+        assert list(ours) == list(ref)
+        for chrom, cf in ref.items():
+            for field in ("forward", "backward"):
+                want = getattr(cf, field)
+                err = np.abs(getattr(ours[chrom], field) - want).max()
+                assert err <= 1e-4 * np.abs(want).max(), (split, chrom, field, err)
+            np.testing.assert_array_equal(ours[chrom].target, cf.target)
+            np.testing.assert_array_equal(ours[chrom].starts, cf.starts)

@@ -145,8 +145,12 @@ def test_edge_form_checks_of_the_kernel_wrappers():
     m = tbsr.bsr_from_graph(tg, device=CPU).fwd
     x = torch.zeros((512, 32))
     assert tbsr._check_csr(m, x) == 32
+    # B1 takes any width; the multiple-of-4 rule is the fused kernels' alone
+    assert tbsr._check_csr(m, torch.zeros((512, 30))) == 30
     with pytest.raises(ValueError, match="multiple of 4"):
-        tbsr._check_csr(m, torch.zeros((512, 30)))
+        tfused._check_fused_csr(m, torch.zeros((512, 30)), tfused.fwd_smem_bytes, "B2")
+    with pytest.raises(ValueError, match="d >= 1"):
+        tbsr._check_csr(m, torch.zeros((512, 0)))
     with pytest.raises(ValueError, match="columns"):
         tbsr._check_csr(m, torch.zeros((256, 32)))
     with pytest.raises(ValueError, match="edge form"):
