@@ -46,16 +46,17 @@ per phase:
    2 epochs on a synthetic world written with the port's savers (train: the
    bench chromosome; valid and test: one 10,000-window chromosome each):
    per-epoch losses, meanAUC, wall time and kernel launches;
-10. timings after warm-up, each the median (min-max) of 5 loops, the
-   functions of a group timed in turns: B1, B2 and B3 per launch with CUDA
-   events, their plain versions and a library yardstick the port never
-   calls (torch.sparse.mm over CSR, composed with the epilogue's ops for
-   B2/B3), and B2's and B3's gather and epilogue apart; each kernel's device
-   time per launch from torch.profiler (the event loops include the host's
-   launch gaps when the host is slow); each kernel's share
-   of its bound (what the data needs: the edge list, the dense arrays,
-   2 nnz d operations plus the epilogue GEMM at 3xTF32's rate); the train
-   and eval steps, unfused and fused, on the host clock;
+10. timings after warm-up, the functions of a group timed in turns: B1, B2
+   and B3 per launch, their plain versions and a library yardstick the port
+   never calls (torch.sparse.mm over CSR, composed with the epilogue's ops
+   for B2/B3), and B2's and B3's gather and epilogue apart. The headline is
+   each call's device time from torch.profiler (every kernel the call runs,
+   median (min-max) of 3 runs of 20); the CUDA-event loops (5 of 20), which
+   include the host's launch gaps, are printed beside it as a record. Each
+   kernel's share of its bound (what the data needs: the edge list, the
+   dense arrays, 2 nnz d operations plus the epilogue GEMM at 3xTF32's rate)
+   is taken from its device time. Then the train and eval steps, unfused and
+   fused, on the host clock;
 11. the window models (Expecto, DeepSEA, DanQ) at full width (seq 2,000,
    919 labels, d_model 128) on the card against the same weights on the
    CPU: a NonStrandSpecific eval forward of 8 sequences, and one train step
@@ -64,7 +65,8 @@ per phase:
    loss, and every gradient but Expecto's below bn3, which pass back through
    train-mode BatchNorms over near-constant channels and land up to ~1e-1 of
    scale from float64 in f32 on any device); this holds the f32 parity mode
-   (TF32 and cuDNN off) faithful and the layouts right on the card;
+   (TF32 off; cuDNN off but for the LSTMs) faithful and the layouts right on
+   the card;
 12. the full-width pretrain step (Expecto at the CLI's defaults: batch 64,
    both strands, Adam lr 2e-4, dropout on) on the host clock, median
    (min-max) of 5 loops of 5 steps, windows/s, the eval step and the peak
@@ -75,16 +77,37 @@ per phase:
    windows each; valid chr3 and test chr1, 1,024 each; Hi-C edges
    make_hic_edges(n, 5n)): Expecto -pretrain -epochs 2, -save_feats, then
    -load_pretrained -epochs 2 -gcn_fused on, warm-started (B2 and B3
-   launches counted); then DanQ -pretrain -epochs 1 and -save_feats (925
-   columns), whose finetune stops at the warm start as the reference's does;
-14. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+   launches counted), -load_pretrained -chrome_model rnn -epochs 1, and
+   -joint -epochs 1 -gcn_fused on warm-started from Expecto's stage 1 (B2
+   and B3 launches counted); then DanQ -pretrain -epochs 1 and -save_feats
+   (925 columns), whose finetune stops at the warm start as the reference's
+   does;
+14. ChromeRNN (-chrome_model rnn) on the bench chromosome as one sequence
+   (N_PAD 50,176, d 128, hidden 64, 2 layers, 919 classes): the eval
+   forward on the card against the CPU within 1e-4 of scale; one train step
+   at N 4,096 in f32 and float64 on the card against float64 on the CPU;
+   a traced train step that must run cuDNN's RNN forward and backward and
+   no per-step cell kernel; the train and eval steps at bench scale on the
+   host clock (median (min-max) of 3 after 1 warm-up) and the peak device
+   memory; as a record, the step at N 4,096 with the LSTMs off cuDNN;
+15. the joint step (Expecto at the CLI's defaults with the GCN, chunks of
+   128 windows under checkpoint): on 256 windows, chunked against one
+   unchunked pass and fused against unfused (loss rel 1e-5, both models'
+   gradients within 1e-4 of scale); on 2,048 windows, unfused and fused,
+   the train and eval steps on the host clock, windows/s, peak memory and
+   launches per step (8 B1; 4 B2 + 4 B3; eval 4 B1 or 4 B2), and one step
+   in the fast mode as a record;
+16. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the run with a non-zero exit code.
 
-``python3 chip_smoke.py --profile`` adds to phases 10 and 12 a
-torch.profiler trace of 3 train steps of each path: device time per step by
-kernel or kernel group, and the device's idle share of the step.
+``python3 chip_smoke.py --profile`` adds to phases 10, 12, 14 and 15 a
+torch.profiler trace of train steps of each path (3 of the GCN's and
+Expecto's; one ChromeRNN step at bench scale and one joint step at 256
+windows):
+device time per step by kernel or kernel group, and the device's idle share
+of the step.
 """
 
 import argparse
@@ -137,6 +160,18 @@ WINDOW_PROFILE_GROUPS = (
     ("optimizer", ("adam", "multi_tensor", "foreach")),
     ("elementwise", ("elementwise",)),
 )
+# ChromeRNN (phase 14): the train step held to float64 and the cuDNN-off
+# record at this N; the kernel-route check traces a step at RNN_TRACE_N
+RNN_CHECK_N, RNN_TRACE_N = 4096, 1024
+# the joint step (phase 15): chunks of 128 windows, the GCN's Adam at the
+# CLI's -lr2; correctness on JOINT_CHECK_N windows, timings on JOINT_N
+JOINT_CHUNK, JOINT_N, JOINT_CHECK_N, JOINT_LR2 = 128, 2048, 256, 2e-3
+# profile groups of the ChromeRNN step, by words in the kernel's name
+RNN_PROFILE_GROUPS = (
+    ("cuDNN RNN", ("rnn", "lstm", "persist", "elemwise")),
+    ("GEMM", ("gemm", "cutlass", "cublas", "gemv")),
+    ("BatchNorm, loss and head (elementwise, reductions)", ("elementwise", "reduce")),
+)
 # profile groups, by words in the kernel's name (first match wins)
 PROFILE_GROUPS = (
     ("B1 bsr_spmm", ("bsr_spmm",)),
@@ -185,11 +220,13 @@ def cuda_ms(fns, iters=20, repeats=5, warmup=3):
     return {name: sorted(t) for name, t in times.items()}
 
 
-def device_ms(fn, match, iters=20):
-    """Device time (ms) per call of ``fn``, summed over the kernels whose
-    name holds ``match``, from torch.profiler over ``iters`` calls after
-    warm-up: the kernel's own time, without the host's launch gaps, which
-    the CUDA-event loops of ``cuda_ms`` include when the host is slow."""
+def device_ms(fn, iters=20):
+    """Device time (ms) per call of ``fn``: every kernel, copy and fill the
+    call runs on the card, summed from torch.profiler over ``iters`` calls
+    after warm-up. It leaves out the host's launch gaps, which the
+    CUDA-event loops of ``cuda_ms`` include when the host is slow, and it
+    counts a library call's several kernels (cuSPARSE's, a composition's)
+    the way it counts one kernel of the port."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -200,10 +237,37 @@ def device_ms(fn, match, iters=20):
         torch.cuda.synchronize()
     total_us = 0.0
     for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA and match in evt.key:
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
             us = getattr(evt, "self_device_time_total", None)
             total_us += evt.self_cuda_time_total if us is None else us
+    require(total_us > 0, "the profiler reported no device time")
     return total_us / iters / 1e3
+
+
+def device_times(fns, iters=20, repeats=3):
+    """{name: sorted device ms per call} for each function of ``fns``
+    (``device_ms`` over ``iters`` calls), the functions profiled in turns
+    ``repeats`` times."""
+    times = {name: [] for name in fns}
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            times[name].append(device_ms(fn, iters))
+    return {name: sorted(t) for name, t in times.items()}
+
+
+def step_ms(fn, steps=3, warmup=1):
+    """Sorted host-clock ms of ``steps`` synchronized calls of ``fn`` after
+    ``warmup``, for steps that take seconds."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)
 
 
 def spread(times):
@@ -411,6 +475,12 @@ def no_dropout(model):
     return model
 
 
+def trained(model):
+    """(name, parameter) of the parameters that train: an LSTM's ``bias_hh``
+    stays zero and out of training (flax's cell has one bias per gate)."""
+    return [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+
+
 def train_grads(model, tokens, targets, comp, dtype=torch.float64):
     """The window train step's loss and gradients in ``dtype`` on ``comp``'s
     device, the BCE included (the port's bce_with_logits computes in f32):
@@ -503,6 +573,284 @@ def read_logs(run_dir):
         with open(os.path.join(run_dir, f"{split}.log")) as f:
             logs[split] = [[float(v) for v in line.split(",")] for line in f]
     return logs
+
+
+def rnn_phase(args, smi, graph, x_f, x_r, targets):
+    """Phase 14: ChromeRNN at bench scale on the card (see the module doc)."""
+    from chromegcn_tpu_torch.models import chrome
+    from chromegcn_tpu_torch.ops import _build
+    from chromegcn_tpu_torch.ops.sparse import build_chrom_graph
+    from chromegcn_tpu_torch.train.finetune import (
+        chrome_eval_step, chrome_train_step, create_chrome_state,
+    )
+
+    t0 = time.perf_counter()
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    log(f"[14 ChromeRNN] {smi}; -chrome_model rnn on the bench chromosome (N_PAD {N_PAD}, "
+        f"{N_VALID} valid, the padded rows zero) as one sequence: d {D}, hidden {D // 2}, "
+        f"{LAYERS} bidirectional layers, {NCLASS} classes, SGD lr {LR}; f32 parity mode (TF32 "
+        "off, the LSTMs on cuDNN's RNN, nothing else on cuDNN)")
+
+    def new_state(device, dropout=0.2, dtype=torch.float32):
+        model = chrome.make_chrome_model("rnn", nclass=NCLASS, dropout=dropout, layers=LAYERS,
+                                         nfeat=D)
+        state = create_chrome_state(model, "sgd", LR, seed=0, device=device)
+        state.model.to(dtype)
+        return state
+
+    def world(n, device):
+        """The first n rows of the bench inputs, the last 2% padding."""
+        g = build_chrom_graph("none", n_valid=n - n // 50 if n < N_PAD else N_VALID, n_pad=n,
+                              device=device)
+        keep = g.node_mask[:, None].to(x_f.device)
+        return g, (x_f[:n] * keep).to(device), (x_r[:n] * keep).to(device), targets[:n].to(device)
+
+    # the eval forward on the card against the same weights on the CPU
+    g, xf, xr, tg = world(N_PAD, cuda)
+    card, host = new_state(cuda), new_state(cpu)
+    with torch.no_grad():
+        got = card.model(xf, g, train=False)[1].cpu()
+        ref = host.model(xf.cpu(), world(N_PAD, cpu)[0], train=False)[1]
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    log(f"  eval forward (one strand) card vs CPU: max_abs_err {err:.3e} ({err / scale:.2e} of "
+        "scale; tol 1e-4)")
+    require(bool(torch.isfinite(got).all()) and err <= 1e-4 * scale,
+            "ChromeRNN's eval forward on the card disagrees with the CPU's")
+    del card, host, got, ref
+
+    # one train step, dropout 0: f32 and float64 on the card against float64 on the CPU
+    n = RNN_CHECK_N
+    states, losses = {}, {}
+    for key, device, dtype in (("card", cuda, torch.float32), ("card64", cuda, torch.float64),
+                               ("cpu64", cpu, torch.float64)):
+        gn, a, b, t = world(n, device)
+        states[key] = new_state(device, 0.0, dtype)
+        losses[key] = chrome_train_step(states[key], a.to(dtype), b.to(dtype), gn, t.to(dtype),
+                                        device=device)[1].item()
+    rel = abs(losses["card"] - losses["cpu64"]) / abs(losses["cpu64"])
+    log(f"  train step at N {n}, dropout 0: loss card f32 {losses['card']:.8f}, card float64 "
+        f"{losses['card64']:.12f}, CPU float64 {losses['cpu64']:.12f}; f32 rel diff {rel:.2e} "
+        "(tol 1e-5)")
+    require(rel <= 1e-5, "ChromeRNN's f32 train-step loss disagrees with float64's")
+    worst32, worst64 = (0.0, ""), (0.0, "")
+    for (name, p32), (_, p64c), (_, p64) in zip(*(trained(states[k].model)
+                                                  for k in ("card", "card64", "cpu64"))):
+        scale = p64.grad.abs().max().item()
+        err32 = (p32.grad.double().cpu() - p64.grad).abs().max().item() / scale
+        err64 = (p64c.grad.cpu() - p64.grad).abs().max().item() / scale
+        require(err32 <= 1e-4, f"ChromeRNN f32 grad {name} is {err32:.2e} of its scale from "
+                "float64")
+        require(err64 <= 1e-9, f"ChromeRNN float64 grad {name} is {err64:.2e} of its scale from "
+                "the CPU's")
+        worst32, worst64 = max(worst32, (err32, name)), max(worst64, (err64, name))
+    log(f"  grads vs CPU float64: f32 card worst {worst32[1]} at {worst32[0]:.2e} of scale (tol "
+        f"1e-4); float64 card worst {worst64[1]} at {worst64[0]:.2e} (tol 1e-9)")
+    del states
+
+    # the route: cuDNN's RNN forward and backward, no per-step cell kernel
+    gn, a, b, t = world(RNN_TRACE_N, cuda)
+    st = new_state(cuda, 0.0)
+    chrome_train_step(st, a, b, gn, t)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        chrome_train_step(st, a, b, gn, t)
+        torch.cuda.synchronize()
+    events = {e.key: e.count for e in prof.key_averages()
+              if "rnn" in e.key.lower() or "lstm" in e.key.lower()}
+    ops = {k: v for k, v in events.items() if k.startswith("aten::")}
+    kernels = sorted({k.split("<")[0].split("(")[0].replace("void ", "")
+                      for k in events if not k.startswith(("aten::", "autograd", "Cudnn"))})
+    log(f"  the LSTMs in one train step at N {RNN_TRACE_N} (torch.profiler): ops {ops}; "
+        f"kernels {kernels}")
+    require(ops.get("aten::_cudnn_rnn") and ops.get("aten::_cudnn_rnn_backward"),
+            "ChromeRNN's LSTM did not run cuDNN's RNN forward and backward")
+    # PyTorch's own path runs aten::_thnn_fused_lstm_cell (and its backward)
+    # once per time step; cuDNN's kernels are named LSTM_* and RNN_*
+    require(not any("lstm_cell" in k.lower() for k in events),
+            "ChromeRNN's LSTM ran per-step cell kernels")
+
+    # timings at bench scale
+    st = new_state(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    step = lambda: chrome_train_step(st, xf, xr, g, tg, gen)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _build.LAUNCHES.clear()
+    t_train = step_ms(step)
+    t_eval = step_ms(lambda: chrome_eval_step(st, xf, xr, g, tg))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    require(not _build.LAUNCHES, f"ChromeRNN launched a GCN kernel: {dict(_build.LAUNCHES)}")
+    loss = chrome_eval_step(st, xf, xr, g, tg)[0].item()
+    require(np.isfinite(loss), "non-finite ChromeRNN loss")
+    # each strand's forward runs LAYERS x 2 directions of N_PAD dependent steps
+    steps = 2 * LAYERS * N_PAD
+    macs = 4 * (D // 2) * (D + D // 2) * steps  # one strand's LSTM forward
+    t_bound = 3 * 2 * 2 * macs / PEAK_FLOPS[torch.float32] * 1e3
+    log(f"  host ms per step, median (min-max) of 3 after 1 warm-up: train {spread(t_train)} "
+        f"(dropout 0.2; eval loss after {loss:.6f}); eval {spread(t_eval)}; peak device memory "
+        f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} above what the process held "
+        f"before the steps); {steps} LSTM time steps (layers x directions x N) per strand pass, "
+        f"{statistics.median(t_eval) * 1e3 / (2 * steps):.2f} us each in the eval step; the "
+        f"LSTMs' train-step FLOPs ({3 * 2 * 2 * macs / 1e9:.1f} GFLOP) take {t_bound:.3f} ms at "
+        f"f32's {PEAK_FLOPS[torch.float32] / 1e12:.0f} TFLOP/s")
+    if args.profile:
+        log("  train step at bench scale:")
+        profile_steps(step, statistics.median(t_train), steps=1, groups=RNN_PROFILE_GROUPS)
+
+    # a record: the same step at RNN_CHECK_N with the LSTMs off cuDNN too,
+    # PyTorch's cell kernels (one step: it takes seconds)
+    gn, a, b, t = world(RNN_CHECK_N, cuda)
+    on = step_ms(lambda: chrome_train_step(st, a, b, gn, t, gen))
+    via_cudnn = chrome.lstm_forward
+    chrome.lstm_forward = lambda lstm, x: lstm(x)[0]
+    try:
+        off = step_ms(lambda: chrome_train_step(st, a, b, gn, t, gen), steps=1, warmup=0)
+    finally:
+        chrome.lstm_forward = via_cudnn
+    log(f"  record: the train step at N {RNN_CHECK_N}, host ms: cuDNN's RNN {spread(on)}; "
+        f"with the LSTMs off cuDNN (PyTorch's per-step cell kernels), one step, "
+        f"{off[0]:.1f} (x{off[0] / statistics.median(on):.0f})")
+    log(f"  done in {time.perf_counter() - t0:.1f} s")
+    return {"train_ms": statistics.median(t_train), "eval_ms": statistics.median(t_eval),
+            "peak": peak}
+
+
+def joint_phase(args, smi, comp):
+    """Phase 15: the joint step on the card (see the module doc)."""
+    from chromegcn_tpu_torch.data.synthetic import make_hic_edges
+    from chromegcn_tpu_torch.models.chrome import make_chrome_model
+    from chromegcn_tpu_torch.models.window import make_window_model
+    from chromegcn_tpu_torch.ops import _build
+    from chromegcn_tpu_torch.ops.sparse import build_chrom_graph
+    from chromegcn_tpu_torch.ops.spmm_bsr import attach_bsr
+    from chromegcn_tpu_torch.train.finetune import create_chrome_state
+    from chromegcn_tpu_torch.train.joint import joint_eval_step, joint_loss, joint_train_step
+    from chromegcn_tpu_torch.train.pretrain import create_window_state
+
+    t0 = time.perf_counter()
+    cuda = torch.device("cuda")
+    log(f"[15 joint step] {smi}; Expecto at the CLI's defaults (seq {SEQ_LEN}, d_model {D}, "
+        f"{NCLASS} labels, Adam lr {WINDOW_LR}) and the GCN (Adam lr2 {JOINT_LR2}, dropout 0.2), "
+        f"chunks of {JOINT_CHUNK} windows under checkpoint, Hi-C edges make_hic_edges(n, 5n), "
+        "f32 parity mode")
+
+    def states(fused="off", dropout=0.2):
+        ws = create_window_state(make_window_model("expecto", NCLASS, SEQ_LEN, D), "adam",
+                                 WINDOW_LR, seed=0, device=cuda)
+        cs = create_chrome_state(make_chrome_model("gcn", nclass=NCLASS, dropout=dropout,
+                                                   layers=LAYERS, nfeat=D, fused=fused),
+                                 "adam", JOINT_LR2, seed=1, device=cuda)
+        return ws, cs
+
+    def world(n, seed):
+        rng = np.random.default_rng(seed)
+        g = attach_bsr(build_chrom_graph("hic", n_valid=n, n_pad=n, device=cuda,
+                                         hic_edges=make_hic_edges(n, 5 * n, seed=seed)),
+                       device=cuda)
+        tok = torch.as_tensor(rng.integers(0, 4, size=(n, SEQ_LEN)).astype(np.int32),
+                              device=cuda)
+        tg = torch.as_tensor((rng.random((n, NCLASS)) < 0.05).astype(np.float32), device=cuda)
+        return g, tok, tg
+
+    # (a) chunked and checkpointed against one unchunked pass, and fused
+    # against unfused, from the same weights, dropout 0
+    g, tok, tg = world(JOINT_CHECK_N, 5)
+
+    def loss_and_grads(fused, chunk, remat):
+        ws, cs = states(fused, dropout=0.0)
+        loss, _ = joint_loss(ws, cs, tok, comp, g, tg, chunk_size=chunk, remat=remat)
+        loss.backward()
+        grads = {f"{tag}.{n}": p.grad for tag, m in (("window", ws.model), ("chrome", cs.model))
+                 for n, p in trained(m) if p.grad is not None}
+        return loss.item(), grads
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    runs = {"unchunked": loss_and_grads("off", JOINT_CHECK_N, False)}
+    peak_whole = torch.cuda.max_memory_allocated() - held
+    runs["chunked"] = loss_and_grads("off", JOINT_CHUNK, True)
+    runs["chunked, fused"] = loss_and_grads("on", JOINT_CHUNK, True)
+    for name, ref_name in (("chunked", "unchunked"), ("chunked, fused", "chunked")):
+        (loss, grads), (ref_loss, ref) = runs[name], runs[ref_name]
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        require(set(grads) == set(ref), f"{name}: another set of gradients than {ref_name}'s")
+        errs = sorted(((grads[k] - v).abs().max().item() / max(v.abs().max().item(), 1e-30), k)
+                      for k, v in ref.items())
+        log(f"  {JOINT_CHECK_N} windows, {name} vs {ref_name}: loss {loss:.8f} vs "
+            f"{ref_loss:.8f}, rel diff {rel:.2e} (tol 1e-5); {len(errs)} grads of both models, "
+            f"worst {errs[-1][1]} at {errs[-1][0]:.2e} of scale (tol 1e-4)")
+        require(rel <= 1e-5 and errs[-1][0] <= 1e-4, f"the joint step {name} disagrees with "
+                f"{ref_name}")
+    log(f"  the unchunked pass (states, forward and backward) peaked {peak_whole / 2**30:.2f} "
+        "GiB above what the process held before it")
+    del runs
+    torch.cuda.empty_cache()
+    if args.profile:
+        ws, cs = states()
+        log(f"  joint train step at {JOINT_CHECK_N} windows:")
+        train = lambda: joint_train_step(ws, cs, tok, comp, g, tg, chunk_size=JOINT_CHUNK)  # noqa
+        profile_steps(train, statistics.median(step_ms(train)), steps=1,
+                      groups=PROFILE_GROUPS[:2] + WINDOW_PROFILE_GROUPS)
+        del ws, cs
+
+    # (b) timings at JOINT_N windows, unfused and fused
+    g, tok, tg = world(JOINT_N, 6)
+    expected = {"off": ({"bsr_spmm": 8}, {"bsr_spmm": 4}),
+                "on": ({"gcn_fused_fwd": 4, "gcn_fused_bwd": 4}, {"gcn_fused_fwd": 4})}
+    out = {}
+    for fused, (train_per_step, eval_per_step) in expected.items():
+        ws, cs = states(fused)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        train = lambda: joint_train_step(ws, cs, tok, comp, g, tg, gen, JOINT_CHUNK)  # noqa
+        evaluate = lambda: joint_eval_step(ws, cs, tok, comp, g, tg, JOINT_CHUNK)  # noqa
+        train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _build.LAUNCHES.clear()
+        t_train = step_ms(train, warmup=0)
+        train_counts = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        evaluate()
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t_eval = step_ms(evaluate, warmup=0)
+        eval_counts = dict(_build.LAUNCHES)
+        loss, probs = evaluate()
+        require(np.isfinite(loss.item()) and probs.shape == (JOINT_N, NCLASS)
+                and bool(torch.isfinite(probs).all()), "non-finite joint eval")
+        ms = statistics.median(t_train)
+        log(f"  -gcn_fused {fused}, {JOINT_N} windows: train {spread(t_train)} ms = "
+            f"{JOINT_N / ms * 1e3:.1f} windows/s; eval {spread(t_eval)} ms; peak device memory "
+            f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} above what the process held "
+            f"before the steps); launches per train step "
+            f"{ {k: v / 3 for k, v in train_counts.items()} }, per eval step "
+            f"{ {k: v / 3 for k, v in eval_counts.items()} } (host ms, median (min-max) of 3 "
+            "after 1 warm-up)")
+        require(train_counts == {k: 3 * v for k, v in train_per_step.items()},
+                f"-gcn_fused {fused}: expected {train_per_step} launches per joint train step")
+        require(eval_counts == {k: 3 * v for k, v in eval_per_step.items()},
+                f"-gcn_fused {fused}: expected {eval_per_step} launches per joint eval step")
+        out[fused] = {"train_ms": ms, "eval_ms": statistics.median(t_eval), "peak": peak}
+        if fused == "off":
+            # a record, not the port's mode: the fast mode (cuDNN and TF32)
+            torch.backends.cudnn.enabled = True
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                fast = step_ms(train, steps=1)
+            finally:
+                torch.backends.cudnn.enabled = False
+                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
+            log(f"  record: the same train step in the fast mode (cuDNN and TF32), 1 after 1 "
+                f"warm-up: {fast[0]:.1f} ms = {JOINT_N / fast[0] * 1e3:.1f} windows/s")
+        del ws, cs
+    log(f"  done in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main():
@@ -944,37 +1292,44 @@ def main():
     adj_csr = csr_of(graph)
     errs["library"] = compare("torch.sparse.mm (CSR) vs kernel, fwd d=128",
                               torch.sparse.mm(adj_csr, x), bsr_matmul(op.fwd, x))
-    # in turns, 5 loops each: median (min-max) ms per call
-    t = t_b1 = cuda_ms({
+    # the headline: device time per call (torch.profiler, every kernel the
+    # call runs), median (min-max) of 3 runs of 20 in turns; the CUDA-event
+    # loops beside it are a record, the host's launch gaps included
+    b1_fns = {
         "fwd": lambda: bsr_matmul(op.fwd, x),
         "bwd": lambda: bsr_matmul(op.bwd, x),
         "plain": lambda: bsr_matmul_plain(op.fwd, x),
         "library": lambda: torch.sparse.mm(adj_csr, x),
-    })
+    }
+    t = t_b1 = device_times(b1_fns)
+    ev = cuda_ms(b1_fns)
     t_fwd, t_plain, t_lib = (statistics.median(t[k]) for k in ("fwd", "plain", "library"))
+    ev_fwd = statistics.median(ev["fwd"])
     b_ms, b_by, b_bytes, b_flops = bound(op.fwd, D)
-    log(f"  B1 f32 d=128 ms/launch, median (min-max) of 5 loops of 20 in turns: "
-        f"fwd {spread(t['fwd'])}; bwd {spread(t['bwd'])}; plain {spread(t['plain'])}; "
+    log(f"  B1 f32 d=128 device ms per call (torch.profiler, median (min-max) of 3 runs of 20 "
+        f"in turns): fwd {spread(t['fwd'])}; bwd {spread(t['bwd'])}; plain {spread(t['plain'])}; "
         f"torch.sparse.mm CSR {spread(t['library'])}")
+    log(f"  record, not the headline: CUDA-event ms per call (median (min-max) of 5 loops of 20 "
+        f"in turns, host launch gaps included): fwd {spread(ev['fwd'])}; bwd "
+        f"{spread(ev['bwd'])}; plain {spread(ev['plain'])}; torch.sparse.mm CSR "
+        f"{spread(ev['library'])}")
     shares = {"B1 f32 d=128": b_ms / t_fwd}
     log(f"  bound {b_ms:.4f} ms by {b_by} ({b_bytes / 1e6:.1f} MB: {op.fwd.nnz} nonzeros' "
         f"values and columns, row pointers, x and out; {b_flops / 1e9:.4f} GFLOP); kernel at "
-        f"{100 * shares['B1 f32 d=128']:.1f}% of it, torch.sparse.mm at {100 * b_ms / t_lib:.1f}%")
+        f"{100 * shares['B1 f32 d=128']:.1f}% of it, torch.sparse.mm at {100 * b_ms / t_lib:.1f}%"
+        f" (device times)")
     log(f"  block form (not the bound): {elems} live block elements, "
         f"{block_bytes / 1e6:.1f} MB with their indices, for {ne} edges")
-    dev_b1 = {d: device_ms(lambda: bsr_matmul(op.fwd, xd), "bsr_spmm_kernel")
-              for d, xd in ((D, x), (1850, randn(N_PAD, 1850)))}
-    log(f"  B1 f32 fwd device time per launch (torch.profiler, 20 launches): d=128 "
-        f"{dev_b1[D]:.4f} ms, d=1850 {dev_b1[1850]:.4f} ms")
     for key, d in (("f32", 2 * D), ("bf16", D), ("bf16", 2 * D), ("hub", D), ("f32", 1850),
                    ("f32", 925)):
         m = ops[key].fwd
         xd = randn(N_PAD, d)
-        tk = cuda_ms({key: lambda: bsr_matmul(m, xd)})[key]
+        fns = {key: lambda: bsr_matmul(m, xd)}
+        tk, tk_ev = device_times(fns)[key], cuda_ms(fns)[key]
         bm, by, _, _ = bound(m, d)
         shares[f"B1 {key} d={d}"] = bm / statistics.median(tk)
-        log(f"  B1 fwd {key} d={d}: {spread(tk)} ms/launch; bound {bm:.4f} ms by {by} "
-            f"({100 * shares[f'B1 {key} d={d}']:.1f}%)")
+        log(f"  B1 fwd {key} d={d}: device {spread(tk)} ms per launch (events {spread(tk_ev)}); "
+            f"bound {bm:.4f} ms by {by} ({100 * shares[f'B1 {key} d={d}']:.1f}%)")
     del xd
 
     # B2 and B3 at the main path's shapes; the yardstick composes
@@ -985,7 +1340,7 @@ def main():
     h_t = bsr_matmul(op.bwd, ds)  # B3's h, over op.bwd
     compare("library tanh(sparse.mm(A, x) @ w + b) vs B2",
             torch.tanh(torch.sparse.mm(adj_csr, x) @ w + b), fused_fwd(op.fwd, x, w, b))
-    t = cuda_ms({
+    fused_fns = {
         "B2": lambda: fused_fwd(op.fwd, x, w, b),
         "B2 plain": lambda: fused_fwd_plain(op.fwd, x, w, b),
         "B2 library": lambda: torch.tanh(torch.sparse.mm(adj_csr, x) @ w + b),
@@ -994,7 +1349,9 @@ def main():
         "B3 plain": lambda: fused_bwd_plain(op.bwd, ds, dx_dir, w),
         "B3 library": lambda: torch.addmm(dx_dir, torch.sparse.mm(adj_t_csr, ds), w.T),
         "B3 epilogue GEMM": lambda: torch.addmm(dx_dir, h_t, w.T),
-    })
+    }
+    t = device_times(fused_fns)
+    ev = cuda_ms(fused_fns)
     fused_rows = {}
     for kernel, key, m, bwd in (("gcn_fused_fwd", "B2", op.fwd, False),
                                 ("gcn_fused_bwd", "B3", op.bwd, True)):
@@ -1002,9 +1359,9 @@ def main():
                                                                    f"{key} library"))
         fb_ms, fb_by, fb_bytes, fb_flops = fused_bound(m, D, bwd)
         ffma_ms, ffma_by, _, _ = fused_bound(m, D, bwd, epi_rate=PEAK_FLOPS[torch.float32])
-        fused_rows[kernel] = (ms, ms_plain, ms_lib, fb_ms, fb_by)
+        fused_rows[kernel] = (ms, ms_plain, ms_lib, fb_ms, fb_by, statistics.median(ev[key]))
         shares[key] = fb_ms / ms
-        log(f"  {key} f32 d=128 ms/launch, median (min-max) of 5 loops of 20 in turns: "
+        log(f"  {key} f32 d=128 device ms per call, median (min-max) of 3 runs of 20 in turns: "
             f"kernel {spread(t[key])}; plain {spread(t[f'{key} plain'])}; library "
             f"composition {spread(t[f'{key} library'])}; bound {fb_ms:.4f} ms by {fb_by} "
             f"({fb_bytes / 1e6:.1f} MB, {fb_flops / 1e9:.4f} GFLOP, the GEMM at 3xTF32's "
@@ -1012,14 +1369,14 @@ def main():
             f"library composition at {100 * fb_ms / ms_lib:.1f}%; record, not the bound: "
             f"with the GEMM at f32 FFMA's 67 TFLOP/s it would read {ffma_ms:.4f} ms by "
             f"{ffma_by}")
-    log(f"  device time per launch (torch.profiler, 20 launches): B2 "
-        f"{device_ms(lambda: fused_fwd(op.fwd, x, w, b), 'gcn_fused_kernel'):.4f} ms, B3 "
-        f"{device_ms(lambda: fused_bwd(op.bwd, ds, dx_dir, w), 'gcn_fused_bwd_kernel'):.4f} ms")
+        log(f"  record, not the headline: {key} CUDA-event ms per call (5 loops of 20, host "
+            f"launch gaps included): kernel {spread(ev[key])}; plain "
+            f"{spread(ev[f'{key} plain'])}; library composition {spread(ev[f'{key} library'])}")
     for key, kind, direction, gemm in (
             ("B2", "fwd", "op.fwd", "torch.tanh(torch.addmm(b, h, w))"),
             ("B3", "bwd", "op.bwd", "torch.addmm(dx_dir, h, w.T)")):
-        log(f"  {key}'s two halves apart: B1 over {direction} (the same gather, writes h) "
-            f"{spread(t_b1[kind])}; the epilogue in cuBLAS, {gemm} in f32, "
+        log(f"  {key}'s two halves apart (device ms): B1 over {direction} (the same gather, "
+            f"writes h) {spread(t_b1[kind])}; the epilogue in cuBLAS, {gemm} in f32, "
             f"{spread(t[f'{key} epilogue GEMM'])}")
     del x, ds, dx_dir, h_f, h_t
     # a share above 100% would mean the bound counts less than the work needs
@@ -1067,8 +1424,9 @@ def main():
     comp = {dev: torch.as_tensor(complement_permutation(SRC_VOCAB), device=dev)
             for dev in (cpu, cuda)}
     log(f"[11 window models] seq {SEQ_LEN}, {NCLASS} labels, d_model {D}: card vs CPU from "
-        "the same weights, in the f32 parity mode (TF32 and cuDNN off). Eval forward of 8 "
-        "sequences in f32 within 1e-4 of its scale of the CPU's. One train step on 4 (dropout "
+        "the same weights, in the f32 parity mode (TF32 off; cuDNN off but for the LSTMs). "
+        "Eval forward of 8 sequences in f32 within 1e-4 of its scale of the CPU's. One train "
+        "step on 4 (dropout "
         "0): in float64 on the card, every grad within 1e-9 of its scale of float64 on the "
         "CPU; in f32 on the card, the loss within rel 1e-4 of float64's and every grad within "
         "1e-4 of its scale, but Expecto's below bn3 (reported)")
@@ -1102,15 +1460,14 @@ def main():
             f"{rel:.2e} (tol 1e-4)")
         require(rel <= 1e-4, f"{name}: the card's train-step loss disagrees with float64's")
         held, below_bn, worst64 = [], [], 0.0
-        names = [n for n, _ in states["card"].model.named_parameters()]
+        names = [n for n, _ in trained(states["card"].model)]
         # Expecto's gradients below bn3 pass back through train-mode BatchNorms
         # over near-constant ReLU'd channels: ill-conditioned in f32 on any
         # device (up to ~1e-1 of scale from float64 there, which this phase
         # reports); the float64 comparison holds them
         first_held = names.index("model.bn3.weight") if name == "expecto" else 0
-        for i, (pname, pg, p64g, p64) in enumerate(zip(
-                names, states["card"].model.parameters(), states["card64"].model.parameters(),
-                states["cpu64"].model.parameters())):
+        for i, (pname, (_, pg), (_, p64g), (_, p64)) in enumerate(zip(
+                names, *(trained(states[k].model) for k in ("card", "card64", "cpu64")))):
             scale = p64.grad.abs().max().item()
             err64 = (p64g.grad.cpu() - p64.grad).abs().max().item() / scale
             require(err64 <= 1e-9, f"{name}: float64 grad {pname} is {err64:.2e} of its scale "
@@ -1129,7 +1486,7 @@ def main():
                 f"; below bn3 (reported): worst {max(below_bn)[1]} at {max(below_bn)[0]:.2e}"
                 if below_bn else ""))
         # a record, not the port's mode: the same f32 grads through cuDNN
-        p64 = dict(states["cpu64"].model.named_parameters())
+        p64 = dict(trained(states["cpu64"].model))
         for mode, tf32 in (("cuDNN, TF32 off", False), ("cuDNN and TF32", True)):
             st = create_window_state(
                 no_dropout(make_window_model(name, NCLASS, seq_length=SEQ_LEN, d_model=D)),
@@ -1144,7 +1501,7 @@ def main():
                 torch.backends.cuda.matmul.allow_tf32 = False
             rec = [(((pg.grad.double().cpu() - p64[n].grad).abs().max()
                      / p64[n].grad.abs().max()).item(), n)
-                   for n, pg in st.model.named_parameters()][first_held:]
+                   for n, pg in trained(st.model)][first_held:]
             log(f"  {name} f32 grads with {mode} (a record): worst {max(rec)[1]} at "
                 f"{max(rec)[0]:.2e} of scale")
             del st
@@ -1269,6 +1626,30 @@ def main():
         require(not pipe_counts["pretrain"] and not pipe_counts["save_feats"],
                 "the window stage launched a GCN kernel")
 
+        # ChromeRNN on the saved features, and joint training warm-started
+        # from Expecto's stage-1 checkpoint
+        for mode, extra, warm in (
+                ("rnn", ["-load_pretrained", "-chrome_model", "rnn", "-epochs", "1"],
+                 "warm-started GCN head from CNN checkpoint"),
+                ("joint", ["-joint", "-epochs", "1", "-gcn_fused", "on"],
+                 "joint: warm-started CNN + GCN head from pretrain checkpoint")):
+            _build.LAUNCHES.clear()
+            out, secs = run_cli(cli_main, expecto + extra)
+            pipe_counts[mode] = dict(_build.LAUNCHES)
+            run_dir = cli_config(expecto + extra).run_dir + (".joint" if mode == "joint" else "")
+            logs = read_logs(run_dir)
+            log(f"  expecto {' '.join(extra)}: {secs:.1f} s; launches {pipe_counts[mode]}; "
+                + "; ".join(f"{s} loss {logs[s][0][1]:.6f} meanAUC {logs[s][0][3]:.4f}"
+                            for s in ("train", "valid", "test")))
+            require(any(warm in line for line in out), f"the {mode} run did not log its warm start")
+            require(all(len(v) == 1 for v in logs.values()), f"{mode} logged a wrong epoch count")
+            require(all(np.isfinite(r[1]) for v in logs.values() for r in v),
+                    f"non-finite {mode} loss")
+        require(not pipe_counts["rnn"], "ChromeRNN launched a GCN kernel")
+        # 2 train chromosomes x (4 B2 + 4 B3), 4 B2 per eval chromosome
+        require(pipe_counts["joint"] == {"gcn_fused_fwd": 2 * 4 + 2 * 4, "gcn_fused_bwd": 2 * 4},
+                "expected 16 B2 and 8 B3 launches per joint epoch, and no B1")
+
         danq = base + ["-window_model", "danq", "-d_model", "925"]
         for extra in (["-pretrain", "-epochs", "1"], ["-save_feats"]):
             _, secs = run_cli(cli_main, danq + extra)
@@ -1288,7 +1669,11 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 14. result ----
+    # ---- 14. ChromeRNN at bench scale; 15. the joint step ----
+    rnn_phase(args, smi, graph, x_f, x_r, targets)
+    joint_phase(args, smi, comp[cuda])
+
+    # ---- 16. result ----
     kernels = [{
         "name": "bsr_spmm",
         "route": "cuda",
@@ -1297,6 +1682,7 @@ def main():
         "launches": launches["bsr_spmm"],
         "max_abs_err": max(v for k, v in errs.items() if k != "library"),
         "ms": t_fwd,
+        "event_ms": ev_fwd,
         "plain_ms": t_plain,
         "bound_ms": b_ms,
         "bound_by": b_by,
@@ -1310,6 +1696,7 @@ def main():
         "launches": cli_counts[kernel],
         "max_abs_err": max(errs_fused[kernel]),
         "ms": fused_rows[kernel][0],
+        "event_ms": fused_rows[kernel][5],
         "plain_ms": fused_rows[kernel][1],
         "bound_ms": fused_rows[kernel][3],
         "bound_by": fused_rows[kernel][4],
@@ -1319,7 +1706,7 @@ def main():
          "chromegcn_tpu/ops/gcn_fused.py:85"),
         ("gcn_fused_bwd", "chromegcn_tpu_torch/csrc/gcn_fused_bwd.cu",
          "chromegcn_tpu/ops/gcn_fused.py:206"))]
-    log(f"[14 done] in {time.perf_counter() - t_start:.1f} s")
+    log(f"[16 done] in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

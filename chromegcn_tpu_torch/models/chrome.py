@@ -17,6 +17,17 @@ Parameter names are the reference torch model's (utils/parity.py:38-47):
 (kernels B2 and B3) when the graph carries a BSR operator and the kernels
 take the width (reference: models/chrome.py:151-217). The parameters are the
 same ones, so a state_dict carries over between the two paths.
+
+``ChromeRNN`` (``-chrome_model rnn``) reads the chromosome's windows as one
+sequence through bidirectional LSTMs instead (reference:
+models/ChromeModels.py:55-72). Its LSTMs, and DanQ's, run through
+``lstm_forward``, which puts them on cuDNN on the card: the f32 parity mode
+turns cuDNN off for the whole process because cuDNN's f32 backward
+convolutions are not f32-faithful (train/pretrain.py), but cuDNN's RNN is
+(DanQ's LSTM within 2.4e-6 of scale of float64 on the H100), and without
+cuDNN an LSTM runs PyTorch's cell kernels, a few launches per time step.
+TF32 stays as the process has it: off in the parity mode, on in the fast
+mode. Convolutions stay off cuDNN.
 """
 
 from __future__ import annotations
@@ -53,6 +64,59 @@ def _lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator]) -> Non
     (fan_in = in k) corrected for truncation."""
     std = math.sqrt(1.0 / w[0].numel()) / 0.87962566103423978
     nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+
+
+def init_lstm_(lstm: nn.LSTM, generator: Optional[torch.Generator]) -> None:
+    """flax's OptimizedLSTMCell initializers, per gate i, f, g, o:
+    lecun-normal input kernels, orthogonal recurrent kernels, zero biases.
+
+    flax's cell has one bias per gate, torch's two (``bias_ih`` and
+    ``bias_hh``), whose gradients are equal: trained both, they would move
+    the gate's bias twice as far as flax's per step. So ``bias_hh`` stays
+    zero and out of training, and ``bias_ih`` is flax's bias."""
+    h = lstm.hidden_size
+    for name, p in lstm.named_parameters():
+        if name.startswith("bias"):
+            nn.init.zeros_(p)
+            if name.startswith("bias_hh"):
+                p.requires_grad_(False)
+            continue
+        for k in range(4):
+            block = p.data[k * h:(k + 1) * h]
+            if name.startswith("weight_ih"):
+                _lecun_normal_(block, generator)
+            else:
+                nn.init.orthogonal_(block, generator=generator)
+
+
+def _is_flat(lstm: nn.LSTM) -> bool:
+    """Whether the LSTM's weights sit in one buffer, as cuDNN reads them."""
+    return len({p.untyped_storage().data_ptr() for p in lstm.parameters()}) == 1
+
+
+def lstm_forward(lstm: nn.LSTM, x: torch.Tensor) -> torch.Tensor:
+    """``lstm(x)``'s output sequence.
+
+    On the card the call runs through cuDNN's RNN whatever the process-wide
+    cuDNN switch says, forward and backward (the backward reads what the
+    forward saved), with TF32 as the process has it. cuDNN's backward needs
+    its training-mode forward, so when autograd records an LSTM in eval
+    mode, the call runs in training mode with the inter-layer dropout off:
+    the outputs are eval mode's."""
+    if x.device.type != "cuda":
+        return lstm(x)[0]
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.enabled, lstm.training, lstm.dropout)
+    try:
+        cudnn.enabled = True
+        if not _is_flat(lstm):
+            lstm.flatten_parameters()
+        if not lstm.training and torch.is_grad_enabled():
+            lstm.training, lstm.dropout = True, 0.0
+        return lstm(x)[0]
+    finally:
+        cudnn.enabled = saved[0]
+        lstm.training, lstm.dropout = saved[1], saved[2]
 
 
 class GraphConvolution(nn.Module):
@@ -133,11 +197,7 @@ class ChromeGCN(nn.Module):
                 lin = getattr(self, name)
                 _lecun_normal_(lin.weight.data, generator)
                 nn.init.zeros_(lin.bias)
-        bn = self.batch_norm
-        nn.init.ones_(bn.weight)
-        nn.init.zeros_(bn.bias)
-        bn.running_mean.zero_()
-        bn.running_var.fill_(1.0)
+        self.batch_norm.reset_parameters()
 
     def _use_fused(self, x: torch.Tensor, graph: Optional[SparseGraph]) -> bool:
         """The reference's conditions (models/chrome.py:151-163), with the
@@ -198,6 +258,68 @@ class ChromeGCN(nn.Module):
         return x, self.out(h), (g, g2)
 
 
+class ChromeRNN(nn.Module):
+    """BiLSTM over the window sequence of a chromosome (reference:
+    models/chrome.py:230-272; models/ChromeModels.py:55-72).
+
+    The chromosome's N_pad rows are one sequence, batch 1, through ``layers``
+    bidirectional LSTM layers of hidden ``nfeat // 2``, with dropout (from
+    ``generator``) between layers; then ReLU, the masked BatchNorm, dropout
+    and the head. Each layer is its own single-layer ``nn.LSTM``, so the
+    dropout between layers is the port's ``_dropout``, not the one
+    ``nn.LSTM(num_layers=...)`` draws from torch's global generator.
+
+    The padded suffix is part of the sequence, as in the reference: the
+    reverse direction reads it before the last valid window, so each valid
+    output depends on the node bucket. ``graph`` is read only for its
+    ``node_mask``. Returns (x_in, logits or features, (None, None))."""
+
+    def __init__(self, nfeat: int = 128, nclass: int = 919, dropout: float = 0.2,
+                 layers: int = 2):
+        super().__init__()
+        hidden = nfeat // 2
+        self.dropout = dropout
+        self.rnn = nn.ModuleList(
+            nn.LSTM(nfeat if i == 0 else 2 * hidden, hidden, batch_first=True,
+                    bidirectional=True)
+            for i in range(layers))
+        self.batch_norm = MaskedBatchNorm(2 * hidden)
+        self.out = nn.Linear(2 * hidden, nclass)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """flax's initializers: the LSTM cells', a lecun-normal head with a
+        zero bias, BatchNorm identity."""
+        for lstm in self.rnn:
+            init_lstm_(lstm, generator)
+        _lecun_normal_(self.out.weight.data, generator)
+        nn.init.zeros_(self.out.bias)
+        self.batch_norm.reset_parameters()
+
+    def forward(
+        self,
+        x_in: torch.Tensor,
+        graph: Optional[SparseGraph],
+        train: bool,
+        node_mask: Optional[torch.Tensor] = None,
+        skip_head: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[None, None]]:
+        if node_mask is None and graph is not None:
+            node_mask = graph.node_mask
+        x = x_in[None]  # (1, N, d): the chromosome as one sequence
+        for i, lstm in enumerate(self.rnn):
+            x = lstm_forward(lstm, x)
+            if i + 1 < len(self.rnn):
+                x = _dropout(x, self.dropout, train, generator)
+        h = torch.relu(x[0])
+        h = self.batch_norm(h, use_running_average=not train, mask=node_mask)
+        h = _dropout(h, self.dropout, train, generator)
+        if skip_head:
+            return x_in, h, (None, None)
+        return x_in, self.out(h), (None, None)
+
+
 def make_chrome_model(
     name: str,
     nclass: int,
@@ -216,7 +338,5 @@ def make_chrome_model(
             gate=gate, layers=layers, spmm_impl=spmm_impl, fused=fused,
         )
     if name == "rnn":
-        raise NotImplementedError(
-            "ChromeRNN is not ported yet: ROADMAP item A12"
-        )
+        return ChromeRNN(nfeat=nfeat, nclass=nclass, dropout=dropout, layers=layers)
     raise ValueError(f"unknown chrome model {name!r}")

@@ -4,7 +4,8 @@ chromegcn_tpu/models/norm.py).
 Normalizes with the *biased* batch variance, updates ``running_var`` with
 the *unbiased* one, momentum 0.1, and excludes masked (padding) rows from
 the statistics: chromosome node tensors are padded to bucketed shapes, and
-padding must not leak into mean/var.
+padding must not leak into mean/var. The statistics are taken in f32, or in
+the input's type where it is wider (float64 runs stay float64).
 """
 
 from __future__ import annotations
@@ -30,23 +31,30 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def reset_parameters(self) -> None:
+        """Identity: weight 1, bias 0, running mean 0 and variance 1."""
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
     def forward(
         self,
         x: torch.Tensor,
         use_running_average: bool,
         mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        x32 = x.float()
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         if use_running_average:
             mean, var = self.running_mean, self.running_var
         else:
             reduce_axes = tuple(range(x.dim() - 1))
             if mask is None:
-                n = torch.tensor(float(x[..., 0].numel()), device=x.device)
+                n = torch.tensor(float(x[..., 0].numel()), dtype=x32.dtype, device=x.device)
                 mean = x32.mean(dim=reduce_axes)
                 var = (x32 - mean).square().mean(dim=reduce_axes)
             else:
-                m = mask.float()
+                m = mask.to(x32.dtype)
                 m = m.reshape(m.shape + (1,) * (x.dim() - 1 - m.dim()))
                 m = m.expand(x.shape[:-1])[..., None]
                 n = m.sum().clamp(min=1.0)

@@ -25,10 +25,11 @@ do in the JAX package.
 
 These layers are convolutions, an LSTM and dense products, which the JAX
 package leaves to XLA outside any Pallas kernel: here they are PyTorch's
-(cuBLAS's GEMMs; cuDNN's in the fast mode only, train/pretrain.py says
-why). Dropout masks come from the ``generator`` passed to ``forward``;
-DanQ's LSTM draws its inter-layer dropout from torch's default generator of
-the device.
+(cuBLAS's GEMMs; cuDNN's convolutions in the fast mode only,
+train/pretrain.py says why; cuDNN's RNN for DanQ's LSTM on the card in
+either mode, models/chrome.py:lstm_forward). Dropout masks come from the
+``generator`` passed to ``forward``; DanQ's LSTM draws its inter-layer
+dropout from torch's default generator of the device.
 """
 
 from __future__ import annotations
@@ -40,7 +41,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from chromegcn_tpu_torch.models.chrome import _dropout, _lecun_normal_
+from chromegcn_tpu_torch.models.chrome import (
+    _dropout, _lecun_normal_, init_lstm_, lstm_forward,
+)
 
 
 class Dropout(nn.Dropout):
@@ -65,18 +68,7 @@ def _reset_window_model(model: nn.Module, generator: Optional[torch.Generator]) 
         elif isinstance(m, nn.BatchNorm1d):
             m.reset_parameters()
         elif isinstance(m, nn.LSTM):
-            h = m.hidden_size
-            for name, p in m.named_parameters():
-                if name.startswith("bias"):
-                    nn.init.zeros_(p)
-                    continue
-                # one (H, in) block per gate i, f, g, o, as flax's per-gate Dense
-                for k in range(4):
-                    block = p.data[k * h:(k + 1) * h]
-                    if name.startswith("weight_ih"):
-                        _lecun_normal_(block, generator)
-                    else:
-                        nn.init.orthogonal_(block, generator=generator)
+            init_lstm_(m, generator)
 
 
 class Expecto(nn.Module):
@@ -199,7 +191,7 @@ class DanQ(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         x = self.embed(tokens.long()).transpose(1, 2)
         x = self.drop1(F.max_pool1d(F.relu(self.conv1(x)), 13), generator)
-        x, _ = self.bilstm(x.transpose(1, 2).contiguous())  # (B, T, 640), both directions
+        x = lstm_forward(self.bilstm, x.transpose(1, 2).contiguous())  # (B, T, 640)
         x_feat = F.relu(self.linear1(x.flatten(1)))
         return x_feat, self.linear2(x_feat)
 

@@ -37,13 +37,29 @@ def save_checkpoint(
         name = f"ckpt_epoch{epoch}_score{100 * score:.3f}.pt"
     else:
         name = CKPT
-    path = os.path.join(run_dir, name)
-    payload = {
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+    return _write(os.path.join(run_dir, name), {
+        **_state_payload(state),
         "epoch": int(epoch),
         "score": None if score is None else float(score),
-    }
+    })
+
+
+def save_joint_checkpoint(run_dir: str, wstate, cstate, epoch: int) -> str:
+    """Write both stages of a joint run (a WindowTrainState and a
+    ChromeTrainState) and the epoch to ``run_dir``'s ``ckpt.pt``; returns
+    the path."""
+    return _write(os.path.join(run_dir, CKPT), {
+        "window": _state_payload(wstate),
+        "chrome": _state_payload(cstate),
+        "epoch": int(epoch),
+    })
+
+
+def _state_payload(state) -> Dict[str, Any]:
+    return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict()}
+
+
+def _write(path: str, payload: Dict[str, Any]) -> str:
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)  # a reader never sees half a file

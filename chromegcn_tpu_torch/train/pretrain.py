@@ -22,9 +22,10 @@ cuDNN's f32 backward convolutions are still not f32-faithful on the H100
 (at seq 2,000, DeepSEA's conv3 weight gradient lands 1.4e-3 of its scale
 from float64 through cuDNN, 2.4e-2 with TF32, and within 1e-6 without
 cuDNN; chip_smoke.py phase 11 records each mode). So
-the convolutions run as PyTorch's im2col and cuBLAS f32 GEMMs, and DanQ's
-LSTM as PyTorch's cell kernels (``runner.apply_matmul_precision``'s fast mode,
-``-matmul_precision default``, turns cuDNN and TF32 back on).
+the convolutions run as PyTorch's im2col and cuBLAS f32 GEMMs
+(``runner.apply_matmul_precision``'s fast mode, ``-matmul_precision
+default``, turns cuDNN and TF32 back on). DanQ's LSTM runs through cuDNN's
+RNN in either mode (models/chrome.py:lstm_forward).
 """
 
 from __future__ import annotations

@@ -4,8 +4,11 @@
 - pretrain:   train the window CNN on the dataset file's splits;
 - save_feats: one eval-mode pass that dumps every split's per-chromosome
   features (stage 1's checkpoint required);
-- finetune:   train the chromosome GCN on saved features and Hi-C graphs,
-  its head warm-started from stage 1's checkpoint where there is one.
+- finetune:   train the chromosome model (GCN or ChromeRNN) on saved
+  features and Hi-C graphs, its head warm-started from stage 1's checkpoint
+  where there is one;
+- joint:      train the window CNN and the chromosome model together, one
+  optimizer step per chromosome (``-joint``, train/joint.py).
 
 Each epoch trains, evaluates the valid and test splits, logs the metrics,
 tracks the best epoch and checkpoints (reference: runner.py:62-271,
@@ -13,8 +16,7 @@ tracks the best epoch and checkpoints (reference: runner.py:62-271,
 formats, apart from the checkpoints (train/checkpoint.py).
 
 Modes the port lacks raise NotImplementedError naming their ROADMAP item:
-``-joint`` (A11), ``-chrome_model rnn`` (A12), more than one device (A13),
-``-spmm_form hybrid`` (A9).
+more than one device (A13), ``-spmm_form hybrid`` (A9).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from chromegcn_tpu_torch.ops.spmm_bsr import attach_bsr
 from chromegcn_tpu_torch.train import checkpoint as ckpt
 from chromegcn_tpu_torch.train import finetune as ft
 from chromegcn_tpu_torch.train import pretrain as pt
+from chromegcn_tpu_torch.train.joint import joint_eval_step, joint_train_step
 from chromegcn_tpu_torch.train.optim import set_learning_rate, steplr_lr
 from chromegcn_tpu_torch.utils.evals import (
     BestTracker,
@@ -75,10 +78,6 @@ def check_ported(cfg: Config) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a mode or
     flag the port does not have yet."""
     missing = []
-    if cfg.joint:
-        missing.append("-joint (joint CNN+GCN training): ROADMAP A11")
-    if cfg.chrome_model == "rnn":
-        missing.append("-chrome_model rnn (ChromeRNN): ROADMAP A12")
     if max(cfg.graph_devices, cfg.dp_devices, cfg.tp_devices) > 1:
         missing.append(
             "-graph_devices / -dp_devices / -tp_devices > 1 (the parallel paths): "
@@ -416,8 +415,157 @@ def run(cfg: Config, splits: Optional[Dict[str, WindowDataset]] = None,
     to the dataset file's, ``device`` to the card."""
     check_ported(cfg)
     device = resolve_device(device)
+    if cfg.joint:
+        return run_joint(cfg, splits, device=device, verbose=verbose)
     if cfg.pretrain or cfg.save_feats:
         if splits is None:
             splits = artifact.load_dataset(cfg.data_path)
         return run_pretrain(cfg, splits, device=device, verbose=verbose)
     return run_finetune(cfg, device=device, verbose=verbose)
+
+
+def _group_tokens_by_chrom(ds: WindowDataset) -> Dict[str, np.ndarray]:
+    """Each chromosome's window tokens, in the dataset's chromosome order."""
+    return {chrom: ds.tokens[ds.chroms == chrom] for chrom in ds.chrom_order()}
+
+
+def run_joint(cfg: Config, splits: Optional[Dict[str, WindowDataset]] = None,
+              device: DeviceLike = "cuda", verbose=print):
+    """Joint CNN+GCN training (reference: runner.py:554-769); returns
+    ((wstate, cstate), tracker).
+
+    Each chromosome's windows are padded to a multiple of lcm(2 chunk, 128)
+    (not the finetune's 2,048), its graph is built and, where the kernel path
+    is in play, given the flat BSR form. Both stages warm-start from stage
+    1's checkpoint where there is one. Each epoch trains every chromosome of
+    the train split (its log line has the loss only), evaluates valid and
+    test, and saves both stages when the valid score improves; there is no
+    LR schedule and no early stop, as in the reference."""
+    if cfg.dp_devices > 1 or cfg.tp_devices > 1:
+        # the reference's refusal (runner.py:565)
+        raise NotImplementedError(
+            "joint CNN+GCN mode does not compose with -dp_devices/-tp_devices; use "
+            "-graph_devices for multi-device joint runs, or the staged "
+            "pretrain->save_feats->finetune path")
+    if cfg.graph_devices > 1:
+        raise NotImplementedError(
+            "joint mode over -graph_devices > 1 (node-sharded) is not ported yet: ROADMAP A13")
+    device = resolve_device(device)
+    if splits is None:
+        splits = artifact.load_dataset(cfg.data_path)
+    train_ds = splits["train"]
+    label_names = list(train_ds.tgt_vocab.keys())
+    n_targets = train_ds.n_targets
+    comp_map = torch.as_tensor(complement_permutation(train_ds.src_vocab), device=device)
+    chunk = cfg.joint_chunk
+    bucket = int(np.lcm(2 * chunk, 128))
+
+    data = {}
+    for split, ds in splits.items():
+        per = {}
+        for chrom, tokens in _group_tokens_by_chrom(ds).items():
+            n_valid = tokens.shape[0]
+            n_pad = ft.bucket_nodes(n_valid, bucket=bucket)
+            per[chrom] = {
+                "tokens": ft.pad_rows(tokens.astype(np.int32), n_pad),
+                "targets": ft.pad_rows(ds.targets[ds.chroms == chrom].astype(np.float32), n_pad),
+                "n_valid": n_valid,
+            }
+        data[split] = per
+
+    hic = {}
+    if cfg.adj_type in ("hic", "both"):
+        hic = {split: artifact.load_graph_edges(cfg.graph_path(split)) for split in splits}
+    use_bsr = _use_bsr(cfg, device)
+    graphs = {}
+    for split, per in data.items():
+        graphs[split] = {}
+        for chrom, entry in per.items():
+            g = build_chrom_graph(
+                cfg.adj_type, n_valid=entry["n_valid"], n_pad=entry["tokens"].shape[0],
+                hic_edges=hic[split][chrom] if hic else None, device=device)
+            if use_bsr:
+                # no -spmm_dtype here: the reference attaches the operator
+                # without it (runner.py:643), so joint mode runs f32 tiles
+                g = attach_bsr(g, device=device)
+            graphs[split][chrom] = g
+
+    wmodel = make_window_model(cfg.window_model, n_targets, seq_length=cfg.seq_length,
+                               d_model=cfg.d_model)
+    wstate = pt.create_window_state(wmodel, cfg.optim, cfg.lr, seed=cfg.seed, device=device)
+    cmodel = make_chrome_model(
+        cfg.chrome_model, nclass=n_targets, dropout=cfg.gcn_dropout,
+        gate=cfg.gate, layers=cfg.gcn_layers, nfeat=cfg.d_model,
+        spmm_impl=cfg.spmm_impl, fused=cfg.gcn_fused,
+    )
+    optim2, lr2 = cfg.gcn_optim_and_lr()
+    cstate = ft.create_chrome_state(cmodel, optim2, lr2, seed=cfg.seed + 1, device=device)
+    # after the states: they turn TF32 and cuDNN off for the f32 path
+    apply_matmul_precision(cfg)
+
+    run_dir = cfg.run_dir + ".joint"
+    start_epoch = 1
+    if cfg.resume and ckpt.checkpoint_exists(run_dir):
+        restored = ckpt.restore_checkpoint(run_dir, device=device)
+        for state, key in ((wstate, "window"), (cstate, "chrome")):
+            state.model.load_state_dict(restored[key]["model"])
+            state.optimizer.load_state_dict(restored[key]["optimizer"])
+        start_epoch = int(restored["epoch"]) + 1
+        verbose(f"resumed joint training at epoch {start_epoch}")
+    elif ckpt.checkpoint_exists(cfg.stage1_run_dir):
+        # both stages from the pretrain checkpoint (reference: runner.py:701-711)
+        cnn = ckpt.restore_checkpoint(cfg.stage1_run_dir, device=device)
+        wstate.model.load_state_dict(cnn["model"])
+        ft.warm_start_head_from_window(cstate.model, cnn["model"])
+        verbose("joint: warm-started CNN + GCN head from pretrain checkpoint")
+    elif ckpt.any_checkpoint_exists(cfg.stage1_run_dir):
+        raise NotImplementedError(
+            f"{cfg.stage1_run_dir!r} holds the JAX package's orbax checkpoint "
+            f"({ckpt.ORBAX_CKPT}/), which cannot be read without jax: joint mode's warm "
+            f"start needs the port's own {ckpt.CKPT}; run -pretrain through the port")
+
+    os.makedirs(run_dir, exist_ok=True)
+    tracker = BestTracker()
+    logger = EpochLogger(run_dir, append=start_epoch > 1)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed + 2)
+
+    def run_split(split: str, train: bool):
+        preds, targs, losses = [], [], []
+        for chrom, entry in data[split].items():
+            graph = graphs[split][chrom]
+            if train:
+                loss = joint_train_step(wstate, cstate, entry["tokens"], comp_map, graph,
+                                        entry["targets"], generator, chunk, device=device)[2]
+            else:
+                loss, probs = joint_eval_step(wstate, cstate, entry["tokens"], comp_map, graph,
+                                              entry["targets"], chunk, device=device)
+                preds.append(probs[:entry["n_valid"]])
+                targs.append(entry["targets"][:entry["n_valid"]])
+            losses.append(loss)
+        total = sum(float(loss) for loss in losses)  # as the reference sums them
+        if preds:
+            return np.concatenate([p.cpu().numpy() for p in preds]), np.concatenate(targs), total
+        return None, None, total
+
+    for epoch in range(start_epoch, cfg.epochs + 1):
+        t0 = time.time()
+        _, _, train_loss = run_split("train", train=True)
+        v_preds, v_targs, valid_loss = run_split("valid", train=False)
+        valid_metrics = _metrics_for(v_preds, v_targs, valid_loss, (time.time() - t0) / 60,
+                                     cfg, label_names)
+        t_preds, t_targs, test_loss = run_split("test", train=False)
+        test_metrics = _metrics_for(t_preds, t_targs, test_loss, 0.0, cfg, label_names)
+        tracker.evaluate(valid_metrics, test_metrics, epoch)
+        # the train step makes no predictions: its line carries the loss only
+        logger.log_loss("train", epoch, train_loss)
+        logger.log("valid", epoch, valid_loss, valid_metrics)
+        logger.log("test", epoch, test_loss, test_metrics)
+        score = selection_score(valid_metrics)
+        if logger.maybe_snapshot(epoch, valid_loss, score, v_preds, v_targs, t_preds, t_targs):
+            ckpt.save_joint_checkpoint(run_dir, wstate, cstate, epoch)
+        verbose(
+            f"epoch {epoch}: joint test meanAUC={test_metrics['meanAUC']:.4f} "
+            f"meanAUPR={test_metrics['meanAUPR']:.4f} loss={test_loss:.3f} "
+            f"({time.time() - t0:.1f} s)"
+        )
+    return (wstate, cstate), tracker

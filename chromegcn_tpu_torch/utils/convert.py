@@ -8,7 +8,9 @@ it (reference: models/SubLayers.py:12).
 
 ``window_state_dict`` does the same for a window model wrapped in
 NonStrandSpecific (Expecto, DeepSEA or DanQ, as ``create_window_state``
-makes them); its docstring lists the layout changes.
+makes them); its docstring lists the layout changes. ``chromernn_state_dict``
+does it for ChromeRNN (the counterpart of
+chromegcn_tpu/utils/torch_port.py:port_chromernn).
 """
 
 from __future__ import annotations
@@ -106,6 +108,28 @@ def chromegcn_state_dict(
         if name in params:
             out[f"{name}.weight"] = _t(np.asarray(params[name]["kernel"]).T)
             out[f"{name}.bias"] = _t(params[name]["bias"])
+    out["batch_norm.weight"] = _t(params["batch_norm"]["scale"])
+    out["batch_norm.bias"] = _t(params["batch_norm"]["bias"])
+    out["batch_norm.running_mean"] = _t(batch_stats["batch_norm"]["mean"])
+    out["batch_norm.running_var"] = _t(batch_stats["batch_norm"]["var"])
+    return out
+
+
+def chromernn_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX ChromeRNN state -> the port's ChromeRNN ``state_dict``. flax
+    names the cells ``OptimizedLSTMCell_{0..2L-1}`` at the top level of
+    ``params``, in the order they are built: layer l's forward cell is
+    ``2l``, its reverse cell ``2l + 1``; each becomes ``rnn.{l}``'s
+    ``*_l0`` or ``*_l0_reverse`` weights. ``out`` and ``batch_norm`` map as
+    in ``chromegcn_state_dict``."""
+    out: Dict[str, torch.Tensor] = {}
+    n_cells = sum(1 for name in params if name.startswith("OptimizedLSTMCell_"))
+    for i in range(n_cells):
+        suffix = "l0_reverse" if i % 2 else "l0"
+        for key, value in _lstm_direction(params[f"OptimizedLSTMCell_{i}"]).items():
+            out[f"rnn.{i // 2}.{key}_{suffix}"] = _t(value)
+    out["out.weight"] = _t(np.asarray(params["out"]["kernel"]).T)
+    out["out.bias"] = _t(params["out"]["bias"])
     out["batch_norm.weight"] = _t(params["batch_norm"]["scale"])
     out["batch_norm.bias"] = _t(params["batch_norm"]["bias"])
     out["batch_norm.running_mean"] = _t(batch_stats["batch_norm"]["mean"])

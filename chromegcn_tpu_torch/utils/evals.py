@@ -194,6 +194,14 @@ class EpochLogger:
                 f"{epoch},{loss},{m['mAP']},{m['meanAUC']},{m['meanAUPR']},{m['meanFDR']}\n"
             )
 
+    def log_loss(self, split: str, epoch: int, loss: float) -> None:
+        """A loss-only line for a pass that makes no predictions (joint
+        training's train step): NaN placeholders keep the six columns
+        ``epoch,loss,mAP,meanAUC,meanAUPR,meanFDR`` (reference:
+        utils/evals.py:297-300), so every .log parses alike."""
+        with open(os.path.join(self.run_dir, f"{split}.log"), "a") as f:
+            f.write(f"{epoch},{loss},nan,nan,nan,nan\n")
+
     def maybe_snapshot(
         self, epoch: int, valid_loss: float, valid_score: float,
         valid_preds, valid_targs, test_preds, test_targs,

@@ -144,8 +144,9 @@ def test_init_scales():
 
 
 def test_unported_options_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_chrome_model("rnn", nclass=4)
+    # ChromeRNN (A12) has landed: "rnn" builds (tests/test_torch_rnn.py holds it to JAX)
+    model = make_chrome_model("rnn", nclass=4, nfeat=8)
+    assert type(model).__name__ == "ChromeRNN" and model.out.out_features == 4
     with pytest.raises(ValueError):
         make_chrome_model("transformer", nclass=4)
 

@@ -2,9 +2,10 @@
 train/checkpoint, utils/metrics + evals, the dataset, feature and graph
 files) against the JAX package's, on the CPU: the same parser and Config,
 the same metrics, checkpoint save/resume/-load_gcn, the modes the port
-lacks, the warm start from stage 1, a 2-epoch finetune run, and the whole
-three-mode pipeline (-pretrain, -save_feats, -load_pretrained) through both
-packages' ``main``."""
+lacks, the warm start from stage 1, 2-epoch finetune runs of the GCN and of
+ChromeRNN, a 2-epoch joint run, and the whole three-mode pipeline
+(-pretrain, -save_feats, -load_pretrained) through both packages'
+``main``."""
 
 import dataclasses
 import os
@@ -39,7 +40,10 @@ from chromegcn_tpu_torch.train import finetune as tft
 from chromegcn_tpu_torch.train import pretrain as tpt
 from chromegcn_tpu_torch.train import runner as trunner
 from chromegcn_tpu_torch.utils import evals as tevals
-from chromegcn_tpu_torch.utils.convert import chromegcn_state_dict, window_state_dict
+from chromegcn_tpu_torch.utils.convert import (
+    chromegcn_state_dict, chromernn_state_dict, window_state_dict,
+)
+from test_torch_rnn import one_thread
 from test_torch_window import jax_no_dropout, no_dropout  # noqa: F401 (a fixture)
 
 CPU = "cpu"
@@ -270,7 +274,7 @@ UNPORTED = [
     (["-spmm_form", "hybrid"], "A9"),
 ]
 # ROADMAP items that have landed: their modes run through the port
-PORTED = {"A10"}
+PORTED = {"A10", "A11", "A12"}
 
 
 def _window_argv(root, *extra):
@@ -295,12 +299,33 @@ def test_unported_modes_name_their_roadmap_item(tmp_path, extra, item):
     """A mode the port lacks raises NotImplementedError naming its ROADMAP
     item. A10 has landed: -pretrain trains and checkpoints the window CNN,
     and -save_feats, which stops without a stage-1 checkpoint, then dumps
-    every split's features."""
+    every split's features. A11 has: -joint trains both stages and logs a
+    loss-only train line. A12 has: -chrome_model rnn finetunes ChromeRNN."""
     if item not in PORTED:
         with pytest.raises(NotImplementedError, match=item):
             tmain.main(_argv(tmp_path, *extra), device=CPU)
         return
+    if item == "A12":
+        _write_world(tmp_path)
+        argv = _argv(tmp_path, *extra, "-epochs", "1")
+        with one_thread():
+            tmain.main(argv, device=CPU)
+        cfg = tmain.config_from_args(tmain.build_parser().parse_args(argv))
+        assert _log(cfg, "train").shape == (1, 6)
+        assert tckpt.restore_checkpoint(cfg.run_dir)["model"]["rnn.0.weight_ih_l0"].shape == (
+            4 * (D // 2), D)
+        return
     cfg = _write_window_world(tmp_path)
+    if item == "A11":
+        argv = _window_argv(tmp_path, *extra, "-epochs", "1", "-joint_chunk", "8",
+                            "-window_model", "deepsea", "-adj_type", "constant")
+        with one_thread():
+            tmain.main(argv, device=CPU)
+        run_dir = tmain.config_from_args(tmain.build_parser().parse_args(argv)).run_dir + ".joint"
+        train = open(os.path.join(run_dir, "train.log")).read().split(",")
+        assert len(train) == 6 and np.isfinite(float(train[1])) and train[2] == "nan"
+        assert set(tckpt.restore_checkpoint(run_dir)) == {"window", "chrome", "epoch"}
+        return
     argv = _window_argv(tmp_path, *extra)
     if extra == ["-save_feats"]:
         with pytest.raises(FileNotFoundError, match="save_feats requires a trained window"):
@@ -411,6 +436,121 @@ def test_finetune_cli_matches_jax(tmp_path, monkeypatch):
         np.testing.assert_allclose(ours[:, 1], ref[:, 1], rtol=1e-5, err_msg=f"{split} loss")
         np.testing.assert_allclose(ours[:, 2:], ref[:, 2:], rtol=0, atol=1e-4,
                                    err_msg=f"{split} mAP/meanAUC/meanAUPR/meanFDR")
+
+
+def test_rnn_finetune_cli_matches_jax(tmp_path, monkeypatch):
+    """2 epochs of -load_pretrained -chrome_model rnn through both packages'
+    main, from JAX's initial weights, dropout 0, Adam at lr 1e-4 (-optim2 and
+    -lr2 with -use_stage2_hparams, so stage 1's paths stay the world's): the
+    per-epoch losses agree to rel 1e-5 and the metrics to 1e-4. Each
+    chromosome is one sequence padded to the 2,048-node bucket, as in the
+    reference."""
+    rnn = ["-epochs", "2", "-chrome_model", "rnn", "-use_stage2_hparams", "-optim2", "adam",
+           "-lr2", "1e-4"]
+    cfgs = []
+    for results in ("jax", "port"):
+        _write_world(tmp_path, results=results)
+        cfgs.append(tmain.config_from_args(tmain.build_parser().parse_args(
+            _argv(tmp_path, *rnn, results=results))))
+    jcfg, tcfg = cfgs
+    _, init_rng = jax.random.split(jax.random.PRNGKey(jcfg.seed))
+    jstate = jft.create_chrome_state(
+        jax_make_chrome_model("rnn", nclass=NTARGETS, dropout=0.0, nfeat=D),
+        jax_make_optimizer("adam", 1e-4), init_rng, nfeat=D)
+    init = chromernn_state_dict(jax.device_get(jstate.params), jax.device_get(jstate.batch_stats))
+    create = tft.create_chrome_state
+
+    def create_from_jax(model, *args, **kwargs):
+        state = create(model, *args, **kwargs)
+        state.model.load_state_dict(init)
+        return state
+
+    monkeypatch.setattr(tft, "create_chrome_state", create_from_jax)
+    jmain.main(_argv(tmp_path, *rnn, results="jax"))
+    with one_thread():
+        tmain.main(_argv(tmp_path, *rnn, results="port"), device=CPU)
+    for split in ("train", "valid", "test"):
+        ours, ref = _log(tcfg, split), _log(jcfg, split)
+        assert ours.shape == ref.shape == (2, 6), split
+        np.testing.assert_allclose(ours[:, 1], ref[:, 1], rtol=1e-5, err_msg=f"{split} loss")
+        np.testing.assert_allclose(ours[:, 2:], ref[:, 2:], rtol=0, atol=1e-4,
+                                   err_msg=f"{split} mAP/meanAUC/meanAUPR/meanFDR")
+
+
+def test_joint_cli_matches_jax(tmp_path, monkeypatch):
+    """2 epochs of -joint through both packages' main (DeepSEA at seq 200, the
+    cheapest window world on the CPU; the GCN over Hi-C edges; chunks of 8,
+    so each chromosome pads to 128 windows), both stages from JAX's initial
+    weights (PRNGKey(seed) and PRNGKey(seed + 1), as runner.py:656 and :661
+    draw them), GCN dropout 0, Adam at lr 1e-5 for both stages: the
+    per-epoch losses agree to rel 1e-5 and the valid and test metrics to
+    1e-4, and the train line carries the loss only. The port runs the GCN
+    fused (-spmm_impl pallas -gcn_fused on: the kernels' plain versions on
+    the CPU), JAX's unfused (-spmm_impl xla), as in the finetune test."""
+    seq, d = 200, 16
+    root = tmp_path / "data"
+    splits = {
+        "train": make_window_dataset({"chr2": 24}, n_targets=4, seq_length=seq, seed=0),
+        "valid": make_window_dataset({"chr3": 16}, n_targets=4, seq_length=seq, seed=1),
+        "test": make_window_dataset({"chr1": 12, "chr6": 10}, n_targets=4, seq_length=seq,
+                                    seed=2),
+    }
+
+    def argv(results, *extra):
+        return ["-dataroot", str(root), "-results_dir", str(tmp_path / results),
+                "-cell_type", "SYN", "-seq_length", str(seq), "-d_model", str(d),
+                "-window_model", "deepsea", "-optim", "adam", "-lr", "1e-05",
+                "-adj_type", "hic", "-gcn_dropout", "0", "-joint", "-joint_chunk", "8",
+                "-epochs", "2", *extra]
+
+    cfg = tmain.config_from_args(tmain.build_parser().parse_args(argv("port")))
+    os.makedirs(cfg.dataset_dir)
+    os.makedirs(cfg.graph_root)
+    tartifact.save_dataset(cfg.data_path, splits)
+    for i, (split, ds) in enumerate(splits.items()):
+        tartifact.save_graph_edges(cfg.graph_path(split), {
+            chrom: make_hic_edges(int((ds.chroms == chrom).sum()), 40, seed=10 * i + j)
+            for j, chrom in enumerate(ds.chrom_order())})
+
+    jw = jax_create_window_state(jax_make_window_model("deepsea", 4, seq_length=seq, d_model=d),
+                                 jax_make_optimizer("adam", 1e-5), jax.random.PRNGKey(0), seq,
+                                 dict(SRC_VOCAB))
+    window_init = window_state_dict(jax.device_get(jw.params), jax.device_get(jw.batch_stats))
+    jc = jft.create_chrome_state(jax_make_chrome_model("gcn", nclass=4, dropout=0.0, nfeat=d),
+                                 jax_make_optimizer("adam", 1e-5), jax.random.PRNGKey(1), nfeat=d)
+    chrome_init = chromegcn_state_dict(jax.device_get(jc.params), jax.device_get(jc.batch_stats))
+    create_window, create_chrome = tpt.create_window_state, tft.create_chrome_state
+
+    def window_from_jax(model, *args, **kwargs):
+        state = create_window(model, *args, **kwargs)
+        state.model.load_state_dict(window_init)
+        return state
+
+    def chrome_from_jax(model, *args, **kwargs):
+        state = create_chrome(model, *args, **kwargs)
+        state.model.load_state_dict(chrome_init)
+        return state
+
+    monkeypatch.setattr(tpt, "create_window_state", window_from_jax)
+    monkeypatch.setattr(tft, "create_chrome_state", chrome_from_jax)
+    jmain.main(argv("jax", "-spmm_impl", "xla"))
+    layers = []
+    monkeypatch.setattr(tchrome, "fused_gated_layer",
+                        lambda *a: layers.append(1) or fused_gated_layer(*a))
+    with one_thread():
+        tmain.main(argv("port", "-spmm_impl", "pallas", "-spmm_form", "bsr", "-gcn_fused", "on"),
+                   device=CPU)
+    # 2 epochs x (1 train chromosome x 2 strands x 2 layers + 3 eval chromosomes x 4)
+    assert len(layers) == 2 * (4 + 3 * 4)
+    for split in ("train", "valid", "test"):
+        ours = np.loadtxt(os.path.join(cfg.run_dir + ".joint", f"{split}.log"), delimiter=",")
+        jcfg = tmain.config_from_args(tmain.build_parser().parse_args(argv("jax")))
+        ref = np.loadtxt(os.path.join(jcfg.run_dir + ".joint", f"{split}.log"), delimiter=",")
+        assert ours.shape == ref.shape == (2, 6), split
+        np.testing.assert_allclose(ours[:, 1], ref[:, 1], rtol=1e-5, err_msg=f"{split} loss")
+        np.testing.assert_allclose(ours[:, 2:], ref[:, 2:], rtol=0, atol=1e-4, equal_nan=True,
+                                   err_msg=f"{split} metrics")
+        assert np.isnan(ours[:, 2:]).all() == (split == "train")
 
 
 # ---------------------------------------------------------------------------
