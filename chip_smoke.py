@@ -79,9 +79,10 @@ per phase:
    -load_pretrained -epochs 2 -gcn_fused on, warm-started (B2 and B3
    launches counted), -load_pretrained -chrome_model rnn -epochs 1, and
    -joint -epochs 1 -gcn_fused on warm-started from Expecto's stage 1 (B2
-   and B3 launches counted); then DanQ -pretrain -epochs 1 and -save_feats
-   (925 columns), whose finetune stops at the warm start as the reference's
-   does;
+   and B3 launches counted), and -load_pretrained -spmm_form hybrid -epochs
+   1 (B1 over both of the hybrid operator's parts, no B2 or B3); then DanQ
+   -pretrain -epochs 1 and -save_feats (925 columns), whose finetune stops
+   at the warm start as the reference's does;
 14. ChromeRNN (-chrome_model rnn) on the bench chromosome as one sequence
    (N_PAD 50,176, d 128, hidden 64, 2 layers, 919 classes): the eval
    forward on the card against the CPU within 1e-4 of scale; one train step
@@ -97,20 +98,45 @@ per phase:
    the train and eval steps on the host clock, windows/s, peak memory and
    launches per step (8 B1; 4 B2 + 4 B3; eval 4 B1 or 4 B2), and one step
    in the fast mode as a record;
-16. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+17. the full chr1-scale world (chr1 at 1 kb windows: make_hic_edges(249,088,
+   500,000) as bench_hybrid.py builds it, 927,632 edges, N_PAD 249,856) at
+   full width: the host build seconds of the flat, panelled (the reference's
+   panel_bounds) and hybrid operator forms; B1 over the flat form, each
+   panel and both of the hybrid's parts (the stragglers' edge form against
+   index_select + index_add_) against their plain versions; the panelled
+   and hybrid products, A x and A^T g, against the flat one; the unfused
+   train step on the hybrid against the one on the flat form from the same
+   weights (loss rel 1e-5, grads 1e-4 of scale); the unfused flat, unfused
+   hybrid and fused flat train and eval steps on the host clock, with peak
+   memory and launches (8 B1; 16 B1; 4 B2 + 4 B3); B1's device time over
+   each form against the product's bound, and the card's cost model
+   (ops/spmm_hybrid.py) fitted to B1's launches beside the one in the code,
+   and what attach_auto('auto') picks at bench and full scale;
+18. the analysis functions (analysis/saliency.py): feature_saliency,
+   gate_values, refined_embeddings and adjacency_saliency on a 4,096-node
+   graph on the card against the CPU in float64 (within 1e-4 of scale), and
+   timed at bench scale with their B1 launches; tf_knockout_matrix over 3
+   labels at bench scale; score_snp_table for 64 SNPs of a synthetic genome
+   through Expecto, the card in f32 and float64 against the CPU in float64;
+19. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-Any failed phase ends the run with a non-zero exit code.
+Phases 17 and 18 run after 13 and before 14. Every device time comes from
+a complete torch.profiler trace (``traced``): in a long run on the H100 the
+profiler has returned traces that lost some or all of the kernels that
+ran, and such a trace is taken again. Any failed phase ends the run
+with a non-zero exit code.
 
-``python3 chip_smoke.py --profile`` adds to phases 10, 12, 14 and 15 a
-torch.profiler trace of train steps of each path (3 of the GCN's and
-Expecto's; one ChromeRNN step at bench scale and one joint step at 256
-windows):
+``python3 chip_smoke.py --profile`` adds to phases 10, 12, 14, 15 and 17 a
+torch.profiler trace of train steps of each path (3 of the GCN's, at bench
+and full scale, and Expecto's; one ChromeRNN step at bench scale and one
+joint step at 256 windows):
 device time per step by kernel or kernel group, and the device's idle share
 of the step.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -166,6 +192,17 @@ RNN_CHECK_N, RNN_TRACE_N = 4096, 1024
 # the joint step (phase 15): chunks of 128 windows, the GCN's Adam at the
 # CLI's -lr2; correctness on JOINT_CHECK_N windows, timings on JOINT_N
 JOINT_CHUNK, JOINT_N, JOINT_CHECK_N, JOINT_LR2 = 128, 2048, 256, 2e-3
+# the full chr1-scale world (phase 17): chr1 at 1 kb windows and the
+# reference's -hicsize 500000, as bench_hybrid.py:133-137 builds it
+# (make_hic_edges with seed 107, hubness 0.6, compartment_frac 0.15), padded
+# to the 2,048-node bucket
+FULL_VALID, FULL_PAD, FULL_PAIRS = 249_088, 249_856, 500_000
+FULL_EDGES = dict(seed=107, hubness=0.6, compartment_frac=0.15)
+# what the reference's TPU run of that world recorded (HYBRID_r05.json): a
+# record beside this run's counts, not a check (the generators may differ)
+FULL_TPU_RECORD = "927,632 edges / 176,760 straggler edges / 1,946 dense tiles"
+# the analysis phase (18): its float64 check at this N, and the SNPs it scores
+ANALYSIS_N, SNPS = 4096, 64
 # profile groups of the ChromeRNN step, by words in the kernel's name
 RNN_PROFILE_GROUPS = (
     ("cuDNN RNN", ("rnn", "lstm", "persist", "elemwise")),
@@ -220,28 +257,61 @@ def cuda_ms(fns, iters=20, repeats=5, warmup=3):
     return {name: sorted(t) for name, t in times.items()}
 
 
-def device_ms(fn, iters=20):
+def traced(fn, calls, what="a call", alike=True, attempts=5):
+    """[(kernel, device us, count)] of every device event torch.profiler
+    records over ``calls`` calls of ``fn``, from a complete trace: one that
+    holds a device event, in which the port's kernels come as often as their
+    wrappers counted launches (``_build.LAUNCHES``), and, where the calls
+    are ``alike`` (one function of fixed inputs, not a train step, whose
+    allocations and optimizer kernels vary from step to step), each kernel
+    a multiple of ``calls`` times. Another trace is taken, up to
+    ``attempts`` in all, and None returned if none was complete: on the
+    H100, in a long run, torch.profiler has returned traces without some of
+    the kernels that ran, or without any."""
+    from chromegcn_tpu_torch.ops import _build
+
+    for attempt in range(attempts):
+        # hand the allocator's cached blocks back first: the profiler's own
+        # buffers need device memory, which earlier phases may hold
+        torch.cuda.empty_cache()
+        before = dict(_build.LAUNCHES)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = []
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            us = evt.self_cuda_time_total if us is None else us
+            if us > 0:
+                rows.append((evt.key, us, evt.count))
+        ours = all(
+            sum(c for key, _, c in rows if f"{kernel}_kernel" in key)
+            == _build.LAUNCHES[launcher] - before.get(launcher, 0)
+            for launcher, kernel in (("bsr_spmm", "bsr_spmm"), ("gcn_fused_fwd", "gcn_fused"),
+                                     ("gcn_fused_bwd", "gcn_fused_bwd")))
+        if rows and ours and (not alike or all(count % calls == 0 for _, _, count in rows)):
+            return rows
+        log(f"  torch.profiler lost device events of {what} (trace {attempt + 1} of {attempts})")
+    return None
+
+
+def device_ms(fn, iters=20, name="a call"):
     """Device time (ms) per call of ``fn``: every kernel, copy and fill the
-    call runs on the card, summed from torch.profiler over ``iters`` calls
-    after warm-up. It leaves out the host's launch gaps, which the
-    CUDA-event loops of ``cuda_ms`` include when the host is slow, and it
-    counts a library call's several kernels (cuSPARSE's, a composition's)
-    the way it counts one kernel of the port."""
+    call runs on the card, summed from a complete torch.profiler trace
+    (``traced``) of ``iters`` calls after warm-up. It leaves out the host's
+    launch gaps, which the CUDA-event loops of ``cuda_ms`` include when the
+    host is slow, and it counts a library call's several kernels
+    (cuSPARSE's, a composition's) the way it counts one kernel of the port."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(evt, "self_device_time_total", None)
-            total_us += evt.self_cuda_time_total if us is None else us
-    require(total_us > 0, "the profiler reported no device time")
-    return total_us / iters / 1e3
+    rows = traced(fn, iters, name)
+    require(rows is not None, f"torch.profiler lost device events of {name} in every trace")
+    return sum(us for _, us, _ in rows) / iters / 1e3
 
 
 def device_times(fns, iters=20, repeats=3):
@@ -251,7 +321,7 @@ def device_times(fns, iters=20, repeats=3):
     times = {name: [] for name in fns}
     for _ in range(repeats):
         for name, fn in fns.items():
-            times[name].append(device_ms(fn, iters))
+            times[name].append(device_ms(fn, iters, name))
     return {name: sorted(t) for name, t in times.items()}
 
 
@@ -431,25 +501,14 @@ def profile_steps(step, t_step_ms, steps=3, groups=PROFILE_GROUPS):
     """Device time per step by kernel over ``steps`` calls of ``step``, and
     the device's idle share of ``t_step_ms`` (a step timed without the
     profiler), summed by ``groups``."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((dev_us / steps / 1e3, evt.key, evt.count // steps))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    if not rows:
-        log("  profile: the profiler reported no device time")
+    rows = traced(step, steps, "a train step", alike=False)
+    if rows is None:  # a record, not a check: the run goes on without it
+        log(f"  profile of {steps} train steps: not measured, torch.profiler lost device "
+            "events in every trace")
         return
+    rows = sorted(((us / steps / 1e3, key, count // steps) for key, us, count in rows),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
     log(f"  profile of {steps} train steps: device busy {busy:.4f} ms per step of "
         f"{t_step_ms:.4f} ms; idle share {max(0.0, 1 - busy / t_step_ms):.3f}")
     sums = {}
@@ -462,6 +521,26 @@ def profile_steps(step, t_step_ms, steps=3, groups=PROFILE_GROUPS):
         log(f"    {group}: {ms:.4f} ms/step ({100 * ms / busy:.1f}%), {count} launches/step")
     for ms, key, count in rows[:12]:
         log(f"    {ms:9.4f} ms/step {100 * ms / busy:5.1f}%  x{count:<4} {key[:90]}")
+
+
+def new_state(dropout, impl, fused="off"):
+    """A full-width GCN train state on the card, weights from seed 0."""
+    from chromegcn_tpu_torch.models.chrome import make_chrome_model
+    from chromegcn_tpu_torch.train.finetune import create_chrome_state
+
+    model = make_chrome_model("gcn", nclass=NCLASS, dropout=dropout, layers=LAYERS,
+                              nfeat=D, spmm_impl=impl, fused=fused)
+    return create_chrome_state(model, "sgd", LR, seed=0, device="cuda")
+
+
+def check_grads(state, ref_state):
+    """Each parameter's gradient within 1e-4 of the reference's scale: sums
+    over tens of thousands of rows in another order."""
+    for (name, pk), pp in zip(state.model.named_parameters(), ref_state.model.parameters()):
+        err = (pk.grad - pp.grad).abs().max().item()
+        scale = pp.grad.abs().max().item()
+        log(f"  grad {name}: max_abs_err {err:.3e} (tol {1e-4 * scale + 1e-8:.3e})")
+        require(err <= 1e-4 * scale + 1e-8, f"grad {name} disagrees")
 
 
 def no_dropout(model):
@@ -853,6 +932,403 @@ def joint_phase(args, smi, comp):
     return out
 
 
+def launches_per_product(op):
+    """B1 launches one product over ``op`` makes, per direction."""
+    from chromegcn_tpu_torch.ops.spmm_bsr import BSROperator, BSRPanelOperator
+
+    if isinstance(op, BSROperator):
+        return 1
+    if isinstance(op, BSRPanelOperator):
+        require(len(op.fwd) == len(op.bwd), "panels: the two directions differ in count")
+        return len(op.fwd)
+    return 1 + (op.dense is not None)
+
+
+def fullscale_phase(args, smi, bench_graph, bench_device_ms):
+    """Phase 17: the flat, panelled and hybrid forms at full chr1 scale (see
+    the module doc). ``bench_device_ms``: phase 10's device ms of B1 over
+    the bench graph's two directions ({'bench': fwd, 'bench bwd': bwd}), for
+    the cost model's fit. Returns B1's numbers for the kernels line."""
+    from chromegcn_tpu_torch.data.synthetic import make_hic_edges
+    from chromegcn_tpu_torch.ops import _build
+    from chromegcn_tpu_torch.ops import spmm_hybrid as hy
+    from chromegcn_tpu_torch.ops.sparse import build_chrom_graph
+    from chromegcn_tpu_torch.ops.spmm import spmm_operator
+    from chromegcn_tpu_torch.ops.spmm_bsr import (
+        bsr_from_graph, bsr_matmul, bsr_matmul_plain, bsr_panels_from_graph, csr_matmul,
+        panel_bounds, panel_matmul,
+    )
+    from chromegcn_tpu_torch.train.finetune import chrome_eval_step, chrome_train_step
+
+    cuda = torch.device("cuda")
+    t0 = time.perf_counter()
+    s, r, v = make_hic_edges(FULL_VALID, FULL_PAIRS, **FULL_EDGES)
+    graph = build_chrom_graph("hic", n_valid=FULL_VALID, n_pad=FULL_PAD, hic_edges=(s, r, v),
+                              device=cuda)
+    t_world = time.perf_counter() - t0
+    build_s = {}
+    t0 = time.perf_counter()
+    flat = bsr_from_graph(graph, device=cuda)
+    torch.cuda.synchronize()
+    build_s["flat"] = time.perf_counter() - t0
+    bounds = panel_bounds(FULL_PAD, D)
+    t0 = time.perf_counter()
+    panels = bsr_panels_from_graph(graph, d_model=D, device=cuda)
+    torch.cuda.synchronize()
+    build_s["panelled"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hyb = hy.hybrid_from_graph(graph, device=cuda)
+    torch.cuda.synchronize()
+    build_s["hybrid"] = time.perf_counter() - t0
+    tpu_model = hy.estimate_costs_ns(graph, d=D)
+    log(f"[17 full chr1 scale] {smi}; make_hic_edges({FULL_VALID}, {FULL_PAIRS}, "
+        f"{', '.join(f'{k}={v}' for k, v in FULL_EDGES.items())}), N_PAD {FULL_PAD}: "
+        f"{graph.n_edges} directed edges, world built in {t_world:.1f} s")
+    log(f"  host build s: flat {build_s['flat']:.1f}, panelled {build_s['panelled']:.1f} "
+        f"(panel_bounds {bounds}: {len(panels.fwd)} live panels fwd, {len(panels.bwd)} bwd), "
+        f"hybrid {build_s['hybrid']:.1f}")
+    log(f"  flat: {flat.fwd.nnz} nonzeros a direction, fwd nt {flat.fwd.nt} ns {flat.fwd.ns}, "
+        f"bwd nt {flat.bwd.nt} ns {flat.bwd.ns}; hybrid: {hyb.n_stragglers} straggler edges, "
+        f"dense part {hyb.dense.fwd.nnz} nonzeros in {hyb.dense.fwd.nt} tiles; the "
+        f"reference's cost model (TPU constants): {tpu_model['n_straggler_edges']} straggler "
+        f"edges, {tpu_model['n_dense_tiles']} dense tiles. Record, the reference's TPU run "
+        f"(HYBRID_r05.json): {FULL_TPU_RECORD}")
+    require(hyb.dense is not None, "the full-scale world has no dense region")
+    require(hyb.n_stragglers + hyb.dense.fwd.nnz == flat.fwd.nnz == graph.n_edges,
+            "the hybrid's two parts do not hold the graph's nonzeros")
+
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    x = torch.randn(FULL_PAD, D, device=cuda, generator=gen)
+    ct = torch.randn(FULL_PAD, D, device=cuda, generator=gen)
+    errs = {}
+    # B1 against its plain version over every form's matrices
+    mats = {f"flat {k}": getattr(flat, k) for k in ("fwd", "bwd")}
+    for k in ("fwd", "bwd"):
+        for (pr, pc), m in zip(getattr(panels, f"{k}_coords"), getattr(panels, k)):
+            mats[f"panel {k} ({pr},{pc})"] = m
+        mats[f"hybrid dense {k}"] = getattr(hyb.dense, k)
+    for name, m in mats.items():
+        xs = x[:m.n_cols] if name.startswith("panel") else x
+        ref = bsr_matmul_plain(m, xs)
+        poison_allocator((m.n_rows, D))
+        errs[name] = compare(f"B1 {name} d={D}", bsr_matmul(m, xs), ref)
+        del ref
+    for k, (gi, si, vals) in (("fwd", (hyb.fs, hyb.fr, hyb.fv)), ("bwd", (hyb.bs, hyb.br, hyb.bv))):
+        ref = hy.straggler_matmul_plain(gi, si, vals, FULL_PAD, x)
+        poison_allocator((FULL_PAD, D))
+        errs[f"hybrid stragglers {k}"] = compare(
+            f"B1 hybrid stragglers {k} (edge form) vs index_select + index_add_ d={D}",
+            csr_matmul(getattr(hyb, f"{k}_edges"), x), ref)
+        del ref
+    # the panelled and hybrid products against the flat one: A x and A^T g
+    # through each form's autograd op
+    flat_out = {}
+    for name, op in (("flat", flat), ("panelled", panels), ("hybrid", hyb)):
+        xg = x.clone().requires_grad_()
+        out = spmm_operator(op, xg)
+        out.backward(ct)
+        if name == "flat":
+            flat_out = {"A x": out.detach(), "A^T g": xg.grad}
+            continue
+        errs[f"{name} A x"] = compare(f"{name} A x vs flat", out.detach(), flat_out["A x"])
+        errs[f"{name} A^T g"] = compare(f"{name} A^T g vs flat", xg.grad, flat_out["A^T g"])
+    del flat_out, xg, out
+    torch.cuda.synchronize()
+
+    # the train step on the hybrid against the flat one, from the same weights
+    g_flat = graph.replace(bsr=flat)
+    g_hyb = graph.replace(bsr=hyb)
+    rng = np.random.default_rng(17)
+    x_f = torch.from_numpy(rng.normal(size=(FULL_PAD, D)).astype(np.float32)).to(cuda)
+    x_r = torch.from_numpy(rng.normal(size=(FULL_PAD, D)).astype(np.float32)).to(cuda)
+    targets = torch.from_numpy((rng.random((FULL_PAD, NCLASS)) < 0.1).astype(np.float32)).to(cuda)
+    log("  hybrid train step vs flat train step, dropout 0, same weights:")
+    state_h, state_b = new_state(0.0, "pallas"), new_state(0.0, "pallas")
+    _, loss_h, _ = chrome_train_step(state_h, x_f, x_r, g_hyb, targets)
+    _, loss_b, _ = chrome_train_step(state_b, x_f, x_r, g_flat, targets)
+    rel = abs(loss_h.item() - loss_b.item()) / abs(loss_b.item())
+    log(f"  loss hybrid {loss_h.item():.8f} flat {loss_b.item():.8f} rel diff {rel:.2e} (tol 1e-5)")
+    require(rel <= 1e-5, "hybrid and flat train-step losses disagree")
+    check_grads(state_h, state_b)
+    del state_h, state_b
+
+    # the steps: unfused flat, unfused hybrid, fused flat; launches and peak
+    state_u, state_fu = new_state(0.2, "pallas"), new_state(0.2, "pallas", "on")
+    require(state_fu.model._use_fused(x_f, g_flat), "the full-scale model does not fuse")
+    require(not state_fu.model._use_fused(x_f, g_hyb), "the fused model fuses on the hybrid")
+    gen_step = torch.Generator(device=cuda).manual_seed(0)
+    paths = {"flat": (state_u, g_flat), "hybrid": (state_u, g_hyb), "fused": (state_fu, g_flat)}
+    want = {"flat": ({"bsr_spmm": 8}, {"bsr_spmm": 4}),
+            "hybrid": ({"bsr_spmm": 16}, {"bsr_spmm": 8}),
+            "fused": ({"gcn_fused_fwd": 4, "gcn_fused_bwd": 4}, {"gcn_fused_fwd": 4})}
+    counts, peaks = {}, {}
+    for name, (st, g) in paths.items():
+        for kind, step in (("train", lambda: chrome_train_step(st, x_f, x_r, g, targets,
+                                                               gen_step)),
+                           ("eval", lambda: chrome_eval_step(st, x_f, x_r, g, targets))):
+            step()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _build.LAUNCHES.clear()
+            out = step()
+            torch.cuda.synchronize()
+            counts[name, kind] = dict(_build.LAUNCHES)
+            peaks[name, kind] = (torch.cuda.max_memory_allocated() - held) / 2**30
+            require(all(bool(torch.isfinite(t).all()) for t in out[-2:]),
+                    f"{name} {kind} step: non-finite loss or probs")
+            del out
+    steps = host_ms({f"{name} {kind}": (
+        (lambda st=st, g=g: chrome_train_step(st, x_f, x_r, g, targets, gen_step))
+        if kind == "train" else (lambda st=st, g=g: chrome_eval_step(st, x_f, x_r, g, targets)))
+        for name, (st, g) in paths.items() for kind in ("train", "eval")})
+    edges_per_step = graph.n_edges * LAYERS * 2 * 2
+    for name in paths:
+        t_train = statistics.median(steps[f"{name} train"])
+        log(f"  {name}: host ms per step, median (min-max) of 5 loops of 5 in turns: train "
+            f"{spread(steps[f'{name} train'])} = {edges_per_step / t_train / 1e3:.1f} M edges/s, "
+            f"eval {spread(steps[f'{name} eval'])}; peak device memory above what the process "
+            f"held {peaks[name, 'train']:.2f} GiB (train), {peaks[name, 'eval']:.2f} GiB (eval); "
+            f"launches per step {counts[name, 'train']} (train), {counts[name, 'eval']} (eval)")
+        require((counts[name, "train"], counts[name, "eval"]) == want[name],
+                f"{name}: expected launches {want[name]} per train and eval step")
+    if args.profile:
+        for name in paths:
+            st, g = paths[name]
+            log(f"  {name} train step:")
+            profile_steps(lambda: chrome_train_step(st, x_f, x_r, g, targets, gen_step),
+                          statistics.median(steps[f"{name} train"]))
+    del state_u, state_fu
+
+    # B1's time over each form, its share of the product's bound, and the
+    # card cost model fitted to B1's launches. CUDA events: these calls run
+    # 0.06-1 ms, far above the host's launch gaps, and at this scale, in a
+    # long run, torch.profiler lost kernels from every trace (``traced``)
+    y, z = torch.randn(FULL_PAD, D, device=cuda), torch.randn(FULL_PAD, D, device=cuda)
+    empty = dataclasses.replace(hyb.fwd_edges, row_ptr=torch.zeros_like(hyb.fwd_edges.row_ptr),
+                                col=hyb.fwd_edges.col[:0], val=hyb.fwd_edges.val[:0])
+    adj_csr = csr_of(graph)
+    fns = {
+        "flat": lambda: bsr_matmul(flat.fwd, x),
+        "panelled": lambda: panel_matmul(panels.fwd, panels.fwd_coords, panels.bounds, x),
+        "hybrid": lambda: hy.hybrid_matmul(hyb, x, "fwd"),
+        "hybrid dense": lambda: bsr_matmul(hyb.dense.fwd, x),
+        "hybrid stragglers": lambda: csr_matmul(hyb.fwd_edges, x),
+        "add": lambda: y.add_(z),
+        "library": lambda: torch.sparse.mm(adj_csr, x),
+        "flat bwd": lambda: bsr_matmul(flat.bwd, x),
+        "hybrid dense bwd": lambda: bsr_matmul(hyb.dense.bwd, x),
+        "hybrid stragglers bwd": lambda: csr_matmul(hyb.bwd_edges, x),
+        "empty": lambda: csr_matmul(empty, x),
+    }
+    t = cuda_ms(fns)
+    med = {k: statistics.median(v) for k, v in t.items()}
+    med.update(bench_device_ms)
+    b_ms, b_by, b_bytes, _ = bound(flat.fwd, D)
+    log(f"  B1 ms per product, A x at d {D} (CUDA events, median (min-max) of 5 loops of 20 "
+        f"in turns); the product's bound {b_ms:.4f} ms by {b_by} ({b_bytes / 1e6:.1f} MB)")
+    for name in ("flat", "panelled", "hybrid", "library"):
+        launches = {"flat": 1, "panelled": len(panels.fwd), "hybrid": 2, "library": 0}[name]
+        log(f"    {name}: {spread(t[name])} ms ({launches} B1 launches), "
+            f"{100 * b_ms / med[name]:.1f}% of the bound")
+    for name, m in (("hybrid dense", hyb.dense.fwd), ("hybrid stragglers", hyb.fwd_edges)):
+        bm, by, _, _ = bound(m, D)
+        log(f"    {name}: {spread(t[name])} ms, {m.nnz} nonzeros, its own bound {bm:.4f} ms by "
+            f"{by} ({100 * bm / med[name]:.1f}%)")
+    add_bytes = 3 * FULL_PAD * D * 4
+    log(f"    the hybrid's add: {spread(t['add'])} ms, its bound "
+        f"{add_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes")
+    # fit one launch's time to launch + a_local n_local + a_scattered
+    # n_scattered + b rows (d 128), the nonzeros split by the hybrid's test,
+    # every constant >= 0 (non-negative least squares): a free intercept
+    # comes out negative, and the model would then favour the form with more
+    # launches on graphs smaller than those measured. The bench graph's
+    # points are phase 10's device times (its 0.03 ms launches are near the
+    # host's launch gaps, which CUDA events would count)
+    def split(g):
+        e = g.n_edges
+        n_local = int(hy._dense_selection(g.senders[:e].cpu().numpy(),
+                                          g.receivers[:e].cpu().numpy(), g.n_nodes, 128, 128,
+                                          hy.DENSE_REGION_EDGES).sum())
+        return n_local, e - n_local
+
+    full_split, bench_split = split(graph), split(bench_graph)
+    points = [("flat", full_split, FULL_PAD), ("flat bwd", full_split, FULL_PAD),
+              ("hybrid dense", (full_split[0], 0), FULL_PAD),
+              ("hybrid dense bwd", (full_split[0], 0), FULL_PAD),
+              ("hybrid stragglers", (0, full_split[1]), FULL_PAD),
+              ("hybrid stragglers bwd", (0, full_split[1]), FULL_PAD),
+              ("empty", (0, 0), FULL_PAD),
+              ("bench", bench_split, bench_graph.n_nodes),
+              ("bench bwd", bench_split, bench_graph.n_nodes)]
+    a = np.array([[1.0, nl, ns_, rows] for _, (nl, ns_), rows in points])
+    ns = np.array([med[k] * 1e6 for k, _, _ in points])
+    from scipy.optimize import nnls
+
+    (c_launch, c_local, c_scat, c_row), _ = nnls(a, ns)
+    c_add = med["add"] * 1e6 / FULL_PAD
+    log(f"  card cost model fitted this run (B1 ns = launch + a_local n_local + a_scattered "
+        f"n_scattered + b rows, d {D}, non-negative least squares over the launches below; "
+        f"local: in a dense region): launch "
+        f"{c_launch:.1f} ns, a_local {c_local:.5f} ns, a_scattered {c_scat:.5f} ns, b "
+        f"{c_row:.5f} ns/row; add {c_add:.5f} ns/row. In the code: launch "
+        f"{hy._CARD_LAUNCH_NS}, a_local {hy._CARD_NS_PER_LOCAL_NNZ}, a_scattered "
+        f"{hy._CARD_NS_PER_SCATTERED_NNZ}, b {hy._CARD_NS_PER_ROW}, add "
+        f"{hy._CARD_ADD_NS_PER_ROW}")
+    for (k, (nl, ns_), rows), y_ns in zip(points, ns):
+        fit = c_launch + c_local * nl + c_scat * ns_ + c_row * rows
+        log(f"    {k}: {nl} local + {ns_} scattered nonzeros, {rows} rows: measured "
+            f"{y_ns / 1e3:.4f} us, fit {fit / 1e3:.4f} us, the code's model "
+            f"{hy.b1_cost_ns(nl, ns_, rows, D) / 1e3:.4f} us")
+    bench_card = hy.card_costs_ns(bench_graph, d=D)
+    log(f"  attach_auto('auto') picks {hy.auto_form(bench_graph, D)!r} at bench scale (model: "
+        f"flat {bench_card['bsr_ns'] / 1e6:.4f} ms, hybrid {bench_card['hybrid_ns'] / 1e6:.4f} "
+        f"ms a product)")
+    card = hy.card_costs_ns(graph, d=D)
+    log(f"  cost model in the code vs measured, one product: flat {card['bsr_ns'] / 1e6:.4f} "
+        f"vs {med['flat']:.4f} ms; hybrid {card['hybrid_ns'] / 1e6:.4f} vs {med['hybrid']:.4f} "
+        f"ms. attach_auto('auto') picks {hy.auto_form(graph, D)!r} at full scale; the "
+        f"reference's TPU model: bsr {tpu_model['bsr_ns'] / 1e6:.4f} ms, hybrid "
+        f"{tpu_model['hybrid_ns'] / 1e6:.4f} ms (a TPU's, a record)")
+    require(all(np.isfinite([c_launch, c_local, c_scat, c_row, c_add])),
+            "the cost fit is not finite")
+    return {
+        "event_ms_fullscale": med["flat"],
+        "bound_ms_fullscale": b_ms,
+        "launches_hybrid_train_step": counts["hybrid", "train"]["bsr_spmm"],
+        "max_abs_err_fullscale": max(errs.values()),
+        "graph": graph,
+    }
+
+
+def analysis_phase(smi, bench_graph, x_f, x_r, targets, comp):
+    """Phase 18: the analysis functions and the variant scores on the card
+    (see the module doc). Returns B1's launches in the bench-scale analysis."""
+    import copy
+
+    from chromegcn_tpu_torch.analysis.saliency import (
+        adjacency_saliency, feature_saliency, gate_values, refined_embeddings,
+        tf_knockout_matrix,
+    )
+    from chromegcn_tpu_torch.data.synthetic import make_hic_edges
+    from chromegcn_tpu_torch.models.window import make_window_model
+    from chromegcn_tpu_torch.ops import _build
+    from chromegcn_tpu_torch.ops.sparse import build_chrom_graph
+    from chromegcn_tpu_torch.ops.spmm_bsr import attach_bsr
+    from chromegcn_tpu_torch.pipeline.genome import Fasta, write_fasta
+    from chromegcn_tpu_torch.pipeline.variants import score_snp_table
+    from chromegcn_tpu_torch.train.pretrain import create_window_state
+
+    cuda = torch.device("cuda")
+    t0 = time.perf_counter()
+    label = 7
+    state = new_state(0.2, "auto")
+    model = state.model
+    rng = np.random.default_rng(18)
+    with torch.no_grad():  # running statistics away from the identity
+        model.batch_norm.running_mean.copy_(torch.as_tensor(rng.normal(size=D)))
+        model.batch_norm.running_var.copy_(torch.as_tensor(rng.uniform(0.5, 2.0, size=D)))
+    model64 = copy.deepcopy(model).double().cpu()
+
+    # at ANALYSIS_N nodes: the card (B1 over the BSR form; the COO path for
+    # the edge values) against the CPU in float64 (the COO path)
+    n_valid = ANALYSIS_N - 96
+    g_cpu = build_chrom_graph("hic", n_valid=n_valid, n_pad=ANALYSIS_N, device="cpu",
+                              hic_edges=make_hic_edges(n_valid, 5 * n_valid, seed=18))
+    g_card = attach_bsr(g_cpu, device=cuda)
+    x = rng.normal(size=(ANALYSIS_N, D))
+    x32 = torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    fns = {
+        "feature_saliency": lambda m, xx, g: feature_saliency(m, xx, g, label),
+        "gate_values g1": lambda m, xx, g: gate_values(m, xx, g)[0],
+        "gate_values g2": lambda m, xx, g: gate_values(m, xx, g)[1],
+        "refined_embeddings": lambda m, xx, g: refined_embeddings(m, xx, g),
+        "adjacency_saliency": lambda m, xx, g: adjacency_saliency(m, xx, g, label),
+    }
+    log(f"[18 analysis] {smi}; at N {ANALYSIS_N} ({g_cpu.n_edges} edges), label {label}: the "
+        "card (f32, B1; the COO path for the edge values) vs the CPU in float64, within 1e-4 "
+        "of scale")
+    for name, fn in fns.items():
+        _build.LAUNCHES.clear()
+        got = fn(model, x32, g_card)
+        torch.cuda.synchronize()
+        b1 = _build.LAUNCHES["bsr_spmm"]
+        ref = fn(model64, torch.as_tensor(x), g_cpu)
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(got - ref).max())
+        log(f"  {name}: {got.shape}, max_abs_err {err:.3e} ({err / scale:.2e} of scale "
+            f"{scale:.3e}); B1 launches {b1}")
+        require(got.shape == ref.shape and np.isfinite(got).all(), f"{name}: shape or finite")
+        require(err <= 1e-4 * scale, f"{name}: the card disagrees with float64")
+        require(b1 == {"feature_saliency": 4, "adjacency_saliency": 0}.get(name, 2),
+                f"{name}: unexpected B1 launch count {b1}")
+
+    # at bench scale: timed, with their B1 launches
+    bench_bsr = attach_bsr(bench_graph, device=cuda)
+    timed, b1_bench = {}, 0
+    for name, fn in fns.items():
+        if name == "gate_values g2":
+            continue
+        _build.LAUNCHES.clear()
+        fn(model, x_f, bench_bsr)
+        torch.cuda.synchronize()
+        launches = _build.LAUNCHES["bsr_spmm"]
+        b1_bench += launches
+        timed[name] = (step_ms(lambda: fn(model, x_f, bench_bsr)), launches)
+    log(f"  bench scale (N_PAD {N_PAD}, {bench_graph.n_edges} edges), host ms, median "
+        "(min-max) of 3 after 1 warm-up, results back on the host: " + "; ".join(
+            f"{name} {spread(t)} ({b1} B1)" for name, (t, b1) in timed.items()))
+    labels = [int(i) for i in np.argsort(-targets[:, :32].sum(0).cpu().numpy())[:3]]
+    t1 = time.perf_counter()
+    ko = tf_knockout_matrix(model, x_f, x_r, bench_bsr, targets.cpu().numpy(), labels)
+    log(f"  tf_knockout_matrix over labels {labels} at bench scale (7 two-strand forwards, "
+        f"the COO path): {time.perf_counter() - t1:.2f} s; {np.array2string(ko, precision=5)}")
+    require(ko.shape == (3, 3) and np.isfinite(ko).all() and not np.diag(ko).any(),
+            "tf_knockout_matrix: shape, finite or diagonal")
+
+    # score_snp_table through Expecto at the CLI's defaults, on a synthetic
+    # genome: the card in f32 and in float64 against the CPU in float64
+    work = tempfile.mkdtemp(prefix="snps_", dir=os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "build"))
+    try:
+        contigs = {c: "".join(rng.choice(list("acgt"), 60_000)) for c in ("chr1", "chr2")}
+        write_fasta(os.path.join(work, "genome.fa"), contigs)
+        fasta = Fasta(os.path.join(work, "genome.fa"))
+        snps = []
+        for k in range(SNPS):
+            chrom = ("chr1", "chr2")[k % 2]
+            pos = int(rng.integers(1_000, 59_000))
+            ref = contigs[chrom][pos]
+            snps.append((chrom, pos, ref, str(rng.choice([b for b in "acgt" if b != ref]))))
+        wstate = create_window_state(make_window_model("expecto", NCLASS, SEQ_LEN, D), "adam",
+                                     WINDOW_LR, seed=0, device=cuda)
+        t1 = time.perf_counter()
+        got32 = score_snp_table(wstate, comp, fasta, snps)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t1
+        wstate.model.double()
+        got64 = score_snp_table(wstate, comp, fasta, snps)
+        wstate.model.cpu()
+        t1 = time.perf_counter()
+        ref = score_snp_table(wstate, comp.cpu(), fasta, snps)
+        t_cpu = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    scale = float(np.abs(ref).max())
+    err64, err32 = float(np.abs(got64 - ref).max()), float(np.abs(got32 - ref).max())
+    log(f"  score_snp_table, {SNPS} SNPs x {NCLASS} labels through Expecto (seq {SEQ_LEN}): "
+        f"card f32 {t_card:.2f} s, CPU float64 {t_cpu:.2f} s; scale {scale:.3e}; card float64 "
+        f"vs CPU float64 {err64:.3e} ({err64 / scale:.2e} of scale, tol 1e-4); card f32 "
+        f"{err32:.3e} ({err32 / scale:.2e} of scale, tol 1e-3: each score is a difference of "
+        "two f32 probabilities ~1,000 times its size)")
+    require(got32.shape == ref.shape == (SNPS, NCLASS) and np.isfinite(got32).all(),
+            "score_snp_table: shape or finite")
+    require(err64 <= 1e-4 * scale and err32 <= 1e-3 * scale,
+            "score_snp_table: the card disagrees with the CPU")
+    log(f"  done in {time.perf_counter() - t0:.1f} s")
+    return b1_bench
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -870,7 +1346,6 @@ def main():
     sys.path.insert(0, here)
     from chromegcn_tpu_torch.data.synthetic import make_hic_edges
     from chromegcn_tpu_torch.main import main as cli_main
-    from chromegcn_tpu_torch.models.chrome import make_chrome_model
     from chromegcn_tpu_torch.ops import _build
     from chromegcn_tpu_torch.ops import gcn_fused
     from chromegcn_tpu_torch.ops.gcn_fused import (
@@ -881,9 +1356,7 @@ def main():
         attach_bsr, bsr_from_graph, bsr_matmul, bsr_matmul_plain, spmm_bsr,
         streamed_elements,
     )
-    from chromegcn_tpu_torch.train.finetune import (
-        chrome_eval_step, chrome_train_step, create_chrome_state,
-    )
+    from chromegcn_tpu_torch.train.finetune import chrome_eval_step, chrome_train_step
 
     t_start = time.perf_counter()
     cuda = torch.device("cuda")
@@ -1043,19 +1516,6 @@ def main():
     x_f = torch.from_numpy(rng.normal(size=(N_PAD, D)).astype(np.float32)).to(cuda)
     x_r = torch.from_numpy(rng.normal(size=(N_PAD, D)).astype(np.float32)).to(cuda)
     targets = torch.from_numpy((rng.random((N_PAD, NCLASS)) < 0.1).astype(np.float32)).to(cuda)
-
-    def new_state(dropout, impl, fused="off"):
-        model = make_chrome_model("gcn", nclass=NCLASS, dropout=dropout, layers=LAYERS,
-                                  nfeat=D, spmm_impl=impl, fused=fused)
-        return create_chrome_state(model, "sgd", LR, seed=0, device=cuda)
-
-    def check_grads(state, ref_state):
-        # sums over 50k rows in another order: 1e-4 of each grad's scale
-        for (name, pk), pp in zip(state.model.named_parameters(), ref_state.model.parameters()):
-            err = (pk.grad - pp.grad).abs().max().item()
-            scale = pp.grad.abs().max().item()
-            log(f"  grad {name}: max_abs_err {err:.3e} (tol {1e-4 * scale + 1e-8:.3e})")
-            require(err <= 1e-4 * scale + 1e-8, f"grad {name} disagrees")
 
     log("[5 main path] kernel-path step vs plain COO-path step, dropout 0, same weights")
     state_k, state_p = new_state(0.0, "pallas"), new_state(0.0, "xla")
@@ -1646,6 +2106,37 @@ def main():
             require(all(np.isfinite(r[1]) for v in logs.values() for r in v),
                     f"non-finite {mode} loss")
         require(not pipe_counts["rnn"], "ChromeRNN launched a GCN kernel")
+
+        # the hybrid operator through the CLI: B1 over both of its parts,
+        # and no fused kernel
+        from chromegcn_tpu_torch.train.runner import build_split_graphs
+
+        extra = ["-load_pretrained", "-spmm_form", "hybrid", "-epochs", "1"]
+        _build.LAUNCHES.clear()
+        out, secs = run_cli(cli_main, expecto + extra)
+        pipe_counts["hybrid"] = dict(_build.LAUNCHES)
+        cfg_h = cli_config(expecto + extra)
+        logs = read_logs(cfg_h.run_dir)
+        per_product = {}
+        for split in ("train", "valid", "test"):
+            graphs = build_split_graphs(cfg_h, load_chrom_features(cfg_h.feature_path(split)),
+                                        split, device=cuda, verbose=lambda *_: None)
+            per_product[split] = [launches_per_product(g.bsr) for g in graphs.values()]
+        # 2 strands x 2 layers, forward and backward, per train chromosome;
+        # the forward per valid and test chromosome
+        want_b1 = 8 * sum(per_product["train"]) + 4 * sum(per_product["valid"]
+                                                          + per_product["test"])
+        log(f"  expecto {' '.join(extra)}: {secs:.1f} s; launches {pipe_counts['hybrid']} "
+            f"(B1 launches per product, by chromosome: {per_product}); "
+            + "; ".join(f"{s} loss {logs[s][0][1]:.6f} meanAUC {logs[s][0][3]:.4f}"
+                        for s in ("train", "valid", "test")))
+        require(any("attached the hybrid operator" in line for line in out),
+                "the hybrid run did not attach the hybrid operator")
+        require(all(len(v) == 1 for v in logs.values())
+                and all(np.isfinite(r[1]) for v in logs.values() for r in v),
+                "the hybrid run logged a wrong epoch count or a non-finite loss")
+        require(pipe_counts["hybrid"] == {"bsr_spmm": want_b1},
+                f"expected {want_b1} B1 launches and no B2 or B3 in the hybrid epoch")
         # 2 train chromosomes x (4 B2 + 4 B3), 4 B2 per eval chromosome
         require(pipe_counts["joint"] == {"gcn_fused_fwd": 2 * 4 + 2 * 4, "gcn_fused_bwd": 2 * 4},
                 "expected 16 B2 and 8 B3 launches per joint epoch, and no B1")
@@ -1669,19 +2160,32 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    # ---- 17. the full chr1-scale world; 18. analysis ----
+    t0 = time.perf_counter()
+    full = fullscale_phase(args, smi, graph, {"bench": statistics.median(t_b1["fwd"]),
+                                              "bench bwd": statistics.median(t_b1["bwd"])})
+    log(f"  done in {time.perf_counter() - t0:.1f} s")
+    b1_analysis = analysis_phase(smi, graph, x_f, x_r, targets, comp[cuda])
+
     # ---- 14. ChromeRNN at bench scale; 15. the joint step ----
     rnn_phase(args, smi, graph, x_f, x_r, targets)
     joint_phase(args, smi, comp[cuda])
 
-    # ---- 16. result ----
+    # ---- 19. result ----
     kernels = [{
         "name": "bsr_spmm",
         "route": "cuda",
         "source": "chromegcn_tpu_torch/csrc/bsr_spmm.cu",
         "replaces": "chromegcn_tpu/ops/spmm_pallas.py:289",
         "launches": launches["bsr_spmm"],
-        "max_abs_err": max(v for k, v in errs.items() if k != "library"),
+        "launches_hybrid_train_step": full["launches_hybrid_train_step"],
+        "launches_hybrid_cli_epoch": pipe_counts["hybrid"]["bsr_spmm"],
+        "launches_analysis": b1_analysis,
+        "max_abs_err": max([v for k, v in errs.items() if k != "library"]
+                           + [full["max_abs_err_fullscale"]]),
         "ms": t_fwd,
+        "event_ms_fullscale": full["event_ms_fullscale"],
+        "bound_ms_fullscale": full["bound_ms_fullscale"],
         "event_ms": ev_fwd,
         "plain_ms": t_plain,
         "bound_ms": b_ms,
@@ -1706,7 +2210,7 @@ def main():
          "chromegcn_tpu/ops/gcn_fused.py:85"),
         ("gcn_fused_bwd", "chromegcn_tpu_torch/csrc/gcn_fused_bwd.cu",
          "chromegcn_tpu/ops/gcn_fused.py:206"))]
-    log(f"[16 done] in {time.perf_counter() - t_start:.1f} s")
+    log(f"[19 done] in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -72,8 +72,8 @@ class Config:
     hicsize: str = "500000"        # 125000 | 250000 | 500000 | 1000000
     spmm_impl: str = "auto"
     spmm_dtype: str = "float32"  # float32 (parity) | bfloat16 (fast)
-    # block-sparse operator form: 'auto' | 'bsr' | 'hybrid'. The port has
-    # the flat BSR form only: 'auto' attaches it, 'hybrid' is ROADMAP A9
+    # block-sparse operator form: 'auto' | 'bsr' | 'hybrid'; 'auto' picks by
+    # the card's cost model (ops/spmm_hybrid.py:attach_auto)
     spmm_form: str = "auto"
     # fused gated-GCN-layer kernels (ops/gcn_fused.py, B2/B3): 'off' | 'on'
     gcn_fused: str = "off"

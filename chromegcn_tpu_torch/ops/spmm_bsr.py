@@ -24,19 +24,23 @@ the edge form.
 
 The tile/strip split constants are the reference's, kept so the arrays
 match; a split tuned for the H100 is a separate, later option. The card
-has no VMEM budget, so ``attach_bsr`` always builds the flat form (the
-reference's panelled form for oversized graphs is not ported yet).
+has no VMEM budget, so ``attach_bsr`` always builds the flat form. The
+reference's panelled form (``BSRPanelOperator``: the node range cut into
+panels, one ``BSRMatrix`` per non-empty (row panel, column panel) pair) is
+here with the same host arrays, reached through ``bsr_panels_from_graph``
+and ``ops.spmm.spmm``'s dispatch; each live panel is one launch of the
+same kernel over a row slice of x.
 
 Backward: dX = A^T g. The transposed tiling is built on the host and
-stored beside the forward one; ``SpmmBSR`` runs the same kernel over it,
-and the operator gets no gradient.
+stored beside the forward one; ``SpmmBSR`` (and ``SpmmBSRPanels``) runs the
+same kernel over it, and the operator gets no gradient.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,6 +58,9 @@ AUTO_BREAKEVEN_STRIPS = 6
 # the reference's grid-step widths; they set the bucketed ``live`` counts
 TILES_PER_STEP = 8
 STRIPS_PER_STEP = 32
+# the reference's VMEM budget for a VMEM-resident x and out (a TPU's, not
+# the card's): ``panel_bounds`` reads it so the panels cut where JAX's do
+_REFERENCE_PANEL_BYTES = 112 * 1024 * 1024
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -111,6 +118,30 @@ class BSROperator:
         return BSROperator(fwd=self.fwd.to(device), bwd=self.bwd.to(device))
 
 
+@dataclasses.dataclass
+class BSRPanelOperator:
+    """Row/column-panelled block-sparse operator (the reference's form for
+    graphs too large for its VMEM-resident kernel). The node range is cut at
+    ``bounds``; ``fwd``/``bwd`` hold one rectangular BSRMatrix per non-empty
+    (row panel, column panel) pair, at ``fwd_coords``/``bwd_coords``, and
+    out[pr] = sum over pc of A[pr, pc] @ x[pc]."""
+
+    fwd: Tuple[BSRMatrix, ...]
+    bwd: Tuple[BSRMatrix, ...]
+    fwd_coords: Tuple[Tuple[int, int], ...]
+    bwd_coords: Tuple[Tuple[int, int], ...]
+    bounds: Tuple[int, ...]
+
+    @property
+    def n_nodes(self) -> int:
+        return self.bounds[-1]
+
+    def to(self, device: DeviceLike) -> "BSRPanelOperator":
+        return dataclasses.replace(
+            self, fwd=tuple(m.to(device) for m in self.fwd),
+            bwd=tuple(m.to(device) for m in self.bwd))
+
+
 # ---------------------------------------------------------------------------
 # Host-side conversion
 # ---------------------------------------------------------------------------
@@ -131,8 +162,13 @@ def _build_one_direction(
     dtype: torch.dtype,
     device: torch.device,
     n_cols: int | None = None,
+    count_only: bool = False,
 ) -> BSRMatrix:
-    """senders index columns [0, n_cols); receivers index rows [0, n_rows)."""
+    """senders index columns [0, n_cols); receivers index rows [0, n_rows).
+
+    count_only=True returns (nt_pad, ns_pad, nt, ns), the padded and live
+    block counts the build would produce, without building (the reference's
+    cost model reads them, ops.spmm_hybrid.estimate_costs_ns)."""
     if n_cols is None:
         n_cols = n_rows
     ncb = n_cols // tile_c
@@ -170,6 +206,8 @@ def _build_one_direction(
     strip_keys = np.sort(np.unique(skey)) if len(skey) else np.zeros(0, np.int64)
     ns = len(strip_keys)
     ns_pad = _bucket(ns, 128)
+    if count_only:
+        return nt_pad, ns_pad, nt, ns
 
     tiles = np.zeros((nt_pad, tile_r, tile_c), np.float32)
     tile_rb = np.zeros(nt_pad, np.int32)
@@ -282,10 +320,89 @@ def attach_bsr(
     return graph.to(device).replace(bsr=op)
 
 
-def streamed_elements(op: BSROperator, d: int = 128) -> dict:
+def panel_bounds(n_nodes: int, d_model: int, align: int = 128) -> Tuple[int, ...]:
+    """The reference's node-range cut points: panels small enough that one
+    sub-product's x and out panels fit its VMEM budget
+    (``_REFERENCE_PANEL_BYTES``), aligned to ``align``."""
+    max_panel = _REFERENCE_PANEL_BYTES // (2 * d_model * 4)
+    max_panel = max(align, (max_panel // align) * align)
+    k = int(np.ceil(n_nodes / max_panel))
+    panel = int(np.ceil(n_nodes / k / align) * align)
+    bounds = [0]
+    while bounds[-1] < n_nodes:
+        bounds.append(min(bounds[-1] + panel, n_nodes))
+    return tuple(bounds)
+
+
+def _build_panels(
+    s: np.ndarray,
+    r: np.ndarray,
+    v: np.ndarray,
+    bounds: Tuple[int, ...],
+    tile_r: int,
+    tile_c: int,
+    min_edges_per_tile: Union[int, str],
+    dtype: torch.dtype,
+    device: torch.device,
+):
+    """One direction's panel grid: (panels, their (row panel, col panel)
+    coordinates), the empty pairs left out."""
+    panels, coords = [], []
+    nb = len(bounds) - 1
+    pr_of = np.searchsorted(bounds, r, side="right") - 1
+    pc_of = np.searchsorted(bounds, s, side="right") - 1
+    for pr in range(nb):
+        for pc in range(nb):
+            sel = (pr_of == pr) & (pc_of == pc)
+            if not sel.any():
+                continue
+            panels.append(_build_one_direction(
+                s[sel] - bounds[pc], r[sel] - bounds[pr], v[sel],
+                n_rows=bounds[pr + 1] - bounds[pr], tile_r=tile_r, tile_c=tile_c,
+                min_edges_per_tile=min_edges_per_tile, dtype=dtype, device=device,
+                n_cols=bounds[pc + 1] - bounds[pc],
+            ))
+            coords.append((pr, pc))
+    return tuple(panels), tuple(coords)
+
+
+def bsr_panels_from_graph(
+    graph: SparseGraph,
+    d_model: int = 128,
+    tile: int = TILE,
+    min_edges_per_tile: Union[int, str] = "auto",
+    dtype: str = "float32",
+    tile_c: int = TILE_C,
+    bounds: Optional[Tuple[int, ...]] = None,
+    device: DeviceLike = "cuda",
+) -> BSRPanelOperator:
+    """The panelled form of ``graph`` with the reference's host arrays, cut
+    at ``bounds`` (default: the reference's ``panel_bounds(n, d_model)``;
+    pass bounds to panel a small graph)."""
+    device = resolve_device(device)
+    if graph.n_nodes % tile != 0 or graph.n_nodes % tile_c != 0:
+        raise ValueError(
+            f"n_nodes={graph.n_nodes} must be a multiple of tile={tile} "
+            f"and tile_c={tile_c}; pad the graph accordingly"
+        )
+    if bounds is None:
+        bounds = panel_bounds(graph.n_nodes, d_model)
+    bounds = tuple(int(b) for b in bounds)
+    n_edges = int(graph.n_edges)
+    s = graph.senders.cpu().numpy()[:n_edges]
+    r = graph.receivers.cpu().numpy()[:n_edges]
+    v = graph.vals.cpu().numpy()[:n_edges]
+    args = (bounds, tile, tile_c, min_edges_per_tile, _DTYPES[dtype], device)
+    fwd, fwd_coords = _build_panels(s, r, v, *args)
+    bwd, bwd_coords = _build_panels(r, s, v, *args)
+    return BSRPanelOperator(fwd=fwd, bwd=bwd, fwd_coords=fwd_coords,
+                            bwd_coords=bwd_coords, bounds=bounds)
+
+
+def streamed_elements(op: Union[BSROperator, BSRPanelOperator], d: int = 128) -> dict:
     """The reference's roofline accounting: block elements its kernel
     streams per SpMM, counting live grid steps (``live``), plus the x/out
-    elements. Per direction."""
+    elements. Per direction, summed over the panels of a panelled form."""
 
     def one(m: BSRMatrix) -> dict:
         lt, ls = (int(v) for v in m.live.tolist())
@@ -299,7 +416,17 @@ def streamed_elements(op: BSROperator, d: int = 128) -> dict:
             "elem_bytes": m.tiles.element_size(),
         }
 
-    return {"fwd": one(op.fwd), "bwd": one(op.bwd)}
+    if isinstance(op, BSROperator):
+        return {"fwd": one(op.fwd), "bwd": one(op.bwd)}
+    if isinstance(op, BSRPanelOperator):
+        def total(ms):
+            out: dict = {}
+            for m in ms:
+                for k, v in one(m).items():
+                    out[k] = v if k == "elem_bytes" else out.get(k, 0) + v
+            return out
+        return {"fwd": total(op.fwd), "bwd": total(op.bwd)}
+    raise TypeError(f"unsupported operator type {type(op)}")
 
 
 # ---------------------------------------------------------------------------
@@ -380,12 +507,22 @@ def _check_csr(m: BSRMatrix, x: torch.Tensor) -> int:
 def bsr_matmul(m: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
     """out = A @ x (f32 out), x (n_cols, d) for any d >= 1. A CUDA tensor goes
     through the hand-written row-gather kernel over the edge form
-    (``csrc/bsr_spmm.cu``) or raises; a CPU tensor takes the plain version. Counts each kernel launch in
-    ``_build.LAUNCHES['bsr_spmm']``."""
+    (``csr_matmul``) or raises; a CPU tensor takes the plain version."""
     if x.device.type == "cpu":
         return bsr_matmul_plain(m, x)
     if x.device.type != "cuda":
         raise ValueError(f"bsr_matmul runs on cuda or cpu tensors, got {x.device}")
+    return csr_matmul(m, x)
+
+
+def csr_matmul(m, x: torch.Tensor) -> torch.Tensor:
+    """out = A @ x on the card through kernel B1 (``csrc/bsr_spmm.cu``), over
+    any edge form ``m`` (``row_ptr``, ``col``, ``val``, ``n_rows``,
+    ``n_cols``): a BSRMatrix's, or the hybrid operator's stragglers'. Raises
+    for a tensor that is not on the card. Counts each launch in
+    ``_build.LAUNCHES['bsr_spmm']``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel B1 runs on cuda tensors, got {x.device}")
     d = _check_csr(m, x)
     lib = _kernel_lib()
     entry = lib.bsr_spmm_bf16 if m.val.dtype == torch.bfloat16 else lib.bsr_spmm_f32
@@ -417,3 +554,41 @@ class SpmmBSR(torch.autograd.Function):
 
 def spmm_bsr(op: BSROperator, x: torch.Tensor) -> torch.Tensor:
     return SpmmBSR.apply(op, x)
+
+
+def panel_matmul(
+    panels: Tuple[BSRMatrix, ...],
+    coords: Tuple[Tuple[int, int], ...],
+    bounds: Tuple[int, ...],
+    x: torch.Tensor,
+) -> torch.Tensor:
+    """out = A @ x over one direction's panels: one ``bsr_matmul`` per live
+    panel over its contiguous row slice of x, summed per row panel; a row
+    panel with no live panel is zero."""
+    parts = [None] * (len(bounds) - 1)
+    for (pr, pc), m in zip(coords, panels):
+        seg = bsr_matmul(m, x[bounds[pc]:bounds[pc + 1]])
+        parts[pr] = seg if parts[pr] is None else parts[pr].add_(seg)
+    return torch.cat([
+        p if p is not None else x.new_zeros((bounds[i + 1] - bounds[i], x.shape[1]),
+                                            dtype=torch.float32)
+        for i, p in enumerate(parts)])
+
+
+class SpmmBSRPanels(torch.autograd.Function):
+    """A @ x over the forward panels; backward A^T g over ``op.bwd``'s (the
+    reference's ``_spmm_bsr_panels`` custom VJP). No operator gradient."""
+
+    @staticmethod
+    def forward(ctx, op: BSRPanelOperator, x: torch.Tensor) -> torch.Tensor:
+        ctx.op = op
+        return panel_matmul(op.fwd, op.fwd_coords, op.bounds, x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        op = ctx.op
+        return None, panel_matmul(op.bwd, op.bwd_coords, op.bounds, g.contiguous())
+
+
+def spmm_bsr_panels(op: BSRPanelOperator, x: torch.Tensor) -> torch.Tensor:
+    return SpmmBSRPanels.apply(op, x)

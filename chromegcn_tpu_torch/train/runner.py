@@ -16,7 +16,7 @@ tracks the best epoch and checkpoints (reference: runner.py:62-271,
 formats, apart from the checkpoints (train/checkpoint.py).
 
 Modes the port lacks raise NotImplementedError naming their ROADMAP item:
-more than one device (A13), ``-spmm_form hybrid`` (A9).
+more than one device (A13).
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ from chromegcn_tpu_torch.models.chrome import make_chrome_model
 from chromegcn_tpu_torch.models.window import make_window_model
 from chromegcn_tpu_torch.ops.seq import complement_permutation
 from chromegcn_tpu_torch.ops.sparse import SparseGraph, build_chrom_graph
-from chromegcn_tpu_torch.ops.spmm_bsr import attach_bsr
+from chromegcn_tpu_torch.ops.spmm_bsr import BSROperator
+from chromegcn_tpu_torch.ops.spmm_hybrid import HybridOperator, attach_auto
 from chromegcn_tpu_torch.train import checkpoint as ckpt
 from chromegcn_tpu_torch.train import finetune as ft
 from chromegcn_tpu_torch.train import pretrain as pt
@@ -83,8 +84,6 @@ def check_ported(cfg: Config) -> None:
             "-graph_devices / -dp_devices / -tp_devices > 1 (the parallel paths): "
             "ROADMAP A13"
         )
-    if cfg.spmm_form == "hybrid":
-        missing.append("-spmm_form hybrid (the hybrid operator): ROADMAP A9")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
 
@@ -230,6 +229,9 @@ def _use_bsr(cfg: Config, device: torch.device) -> bool:
     return cfg.spmm_impl == "pallas" or (cfg.spmm_impl == "auto" and device.type == "cuda")
 
 
+_FORM_NAMES = {BSROperator: "the flat BSR form", HybridOperator: "the hybrid operator"}
+
+
 def build_split_graphs(
     cfg: Config,
     features: Dict[str, ChromFeatures],
@@ -241,10 +243,10 @@ def build_split_graphs(
     """Per-chromosome SparseGraphs of one split on ``device``, with the Hi-C
     edges loaded where the adjacency needs them (reference: runner.py:281-318).
 
-    Where the block-sparse path is in play, each graph gets the flat BSR
-    form: ``-spmm_form auto`` and ``bsr`` both attach it, since the port has
-    no other form yet (the reference's cost model chooses with TPU cost
-    constants; ROADMAP A9)."""
+    Where the block-sparse path is in play, each graph gets the operator
+    form ``-spmm_form`` names (ops/spmm_hybrid.py:attach_auto): the flat BSR
+    form, the hybrid one, or for 'auto' whichever the card's cost model
+    finds cheaper."""
     device = resolve_device(device)
     hic_edges = None
     if cfg.adj_type in ("hic", "both"):
@@ -262,11 +264,12 @@ def build_split_graphs(
             device=device,
         )
         if use_bsr:
-            g = attach_bsr(g, dtype=cfg.spmm_dtype, device=device)
+            g = attach_auto(g, dtype=cfg.spmm_dtype, strategy=cfg.spmm_form, device=device)
         graphs[chrom] = g
     if use_bsr:
+        forms = sorted({_FORM_NAMES[type(g.bsr)] for g in graphs.values()})
         verbose(
-            f"{split}: attached the flat BSR form ({cfg.spmm_dtype} tiles; "
+            f"{split}: attached {' and '.join(forms)} ({cfg.spmm_dtype} tiles; "
             f"-spmm_form {cfg.spmm_form}) to {len(graphs)} chromosome graphs"
         )
     return graphs
@@ -487,7 +490,7 @@ def run_joint(cfg: Config, splits: Optional[Dict[str, WindowDataset]] = None,
             if use_bsr:
                 # no -spmm_dtype here: the reference attaches the operator
                 # without it (runner.py:643), so joint mode runs f32 tiles
-                g = attach_bsr(g, device=device)
+                g = attach_auto(g, strategy=cfg.spmm_form, device=device)
             graphs[split][chrom] = g
 
     wmodel = make_window_model(cfg.window_model, n_targets, seq_length=cfg.seq_length,

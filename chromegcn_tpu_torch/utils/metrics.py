@@ -14,8 +14,9 @@ this copy to the JAX package's), including:
 - sklearn's degenerate all-negative PR curve (an AUPR of 0.5, a FDR-recall
   of 0).
 
-``find_optimal_cutoff`` (sklearn's roc_curve) is not on the finetune path
-and is not ported yet (ROADMAP A14).
+- ``roc_curve``: sklearn's ``roc_curve`` (drop_intermediate=True, a first
+  threshold of +inf), which ``find_optimal_cutoff`` (Youden's J per label)
+  and ``analysis/plots.py`` read.
 """
 
 from __future__ import annotations
@@ -178,3 +179,43 @@ def example_f1_score(targets: np.ndarray, predictions: np.ndarray) -> float:
     if not keep.any():
         return 0.0
     return float(np.mean(2 * tp[keep] / denom[keep]))
+
+
+def roc_curve(targets: np.ndarray, preds: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(fpr, tpr, thresholds) of one binary label, exactly as
+    sklearn.metrics.roc_curve returns them with its defaults: thresholds
+    descending from +inf, collinear points dropped (drop_intermediate), and
+    NaN rates where a class is missing (sklearn warns there)."""
+    t = np.asarray(targets).ravel() == 1
+    p = np.asarray(preds).ravel()
+    order = np.argsort(p, kind="mergesort")[::-1]
+    p, t = p[order], t[order]
+    idx = np.r_[np.nonzero(np.diff(p))[0], p.size - 1]
+    tps = np.cumsum(t, dtype=np.float64)[idx]
+    fps = 1 + idx - tps
+    thresholds = p[idx]
+    if len(fps) > 2:
+        keep = np.nonzero(np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)), True])[0]
+        fps, tps, thresholds = fps[keep], tps[keep], thresholds[keep]
+    tps, fps = np.r_[0.0, tps], np.r_[0.0, fps]
+    thresholds = np.r_[np.inf, thresholds]
+    with np.errstate(invalid="ignore", divide="ignore"):
+        fpr = fps / fps[-1] if fps[-1] > 0 else np.full(fps.shape, np.nan)
+        tpr = tps / tps[-1] if tps[-1] > 0 else np.full(tps.shape, np.nan)
+    return fpr, tpr, thresholds
+
+
+def find_optimal_cutoff(targets: np.ndarray, preds: np.ndarray) -> np.ndarray:
+    """Youden-J optimal threshold per label, the first of the ROC curve's
+    thresholds where tpr - fpr is largest (reference: utils/metrics.py:
+    224-236). A label whose predictions are not all finite gets 0.5, where
+    sklearn raises and the reference catches it."""
+    cutoffs = []
+    for i in range(targets.shape[1]):
+        p = np.asarray(preds[:, i])
+        if not np.isfinite(p).all():
+            cutoffs.append(0.5)
+            continue
+        fpr, tpr, thresholds = roc_curve(targets[:, i], p)
+        cutoffs.append(thresholds[np.argmax(tpr - fpr)])
+    return np.asarray(cutoffs)

@@ -274,7 +274,7 @@ UNPORTED = [
     (["-spmm_form", "hybrid"], "A9"),
 ]
 # ROADMAP items that have landed: their modes run through the port
-PORTED = {"A10", "A11", "A12"}
+PORTED = {"A9", "A10", "A11", "A12"}
 
 
 def _window_argv(root, *extra):
@@ -300,10 +300,22 @@ def test_unported_modes_name_their_roadmap_item(tmp_path, extra, item):
     item. A10 has landed: -pretrain trains and checkpoints the window CNN,
     and -save_feats, which stops without a stage-1 checkpoint, then dumps
     every split's features. A11 has: -joint trains both stages and logs a
-    loss-only train line. A12 has: -chrome_model rnn finetunes ChromeRNN."""
+    loss-only train line. A12 has: -chrome_model rnn finetunes ChromeRNN.
+    A9 has: -spmm_form hybrid attaches the hybrid operator and finetunes
+    (tests/test_torch_hybrid.py holds its epochs to JAX's)."""
     if item not in PORTED:
         with pytest.raises(NotImplementedError, match=item):
             tmain.main(_argv(tmp_path, *extra), device=CPU)
+        return
+    if item == "A9":
+        _write_world(tmp_path)
+        argv = _argv(tmp_path, *extra, "-spmm_impl", "pallas", "-epochs", "1")
+        lines = []
+        trunner.run(tmain.config_from_args(tmain.build_parser().parse_args(argv)), device=CPU,
+                    verbose=lambda *a: lines.append(" ".join(map(str, a))))
+        assert any("attached the hybrid operator" in line for line in lines)
+        assert _log(tmain.config_from_args(tmain.build_parser().parse_args(argv)),
+                    "train").shape == (1, 6)
         return
     if item == "A12":
         _write_world(tmp_path)
