@@ -118,10 +118,25 @@ per phase:
    timed at bench scale with their B1 launches; tf_knockout_matrix over 3
    labels at bench scale; score_snp_table for 64 SNPs of a synthetic genome
    through Expecto, the card in f32 and float64 against the CPU in float64;
-19. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+19. the parallel paths (``parallel/``) on phase 17's world, nothing cut:
+   in-process (every shard on the card) at 2 and 4 shards, the host
+   seconds of ``partition_graph`` and ``attach_shard_bsr``, each offset's
+   halo width, each shard's local and halo nonzeros and the bytes one rank
+   would send a product; every per-shard B1 launch (local and halo, both
+   directions) against its plain version; the ``halo_bsr`` product A x and
+   A^T g (autograd) against the flat one, with 2 B1 launches a shard a
+   product (1 where its halo is empty); the unfused train step on the
+   sharded graph against the flat one from the same weights (loss rel
+   1e-5, grads 1e-4 of scale) and its launches; the sharded product
+   against the flat one and each shard's B1 against its bound (CUDA
+   events), and the sharded train and eval steps on the host clock with
+   peak memory. Then one rank of an NCCL group: the distributed mode's
+   step at 1 shard, its BatchNorm statistics, loss and gradients
+   all-reduced on the card, against the plain step;
+20. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-Phases 17 and 18 run after 13 and before 14. Every device time comes from
+Phases 17, 18 and 19 run after 13 and before 14. Every device time comes from
 a complete torch.profiler trace (``traced``): in a long run on the H100 the
 profiler has returned traces that lost some or all of the kernels that
 ran, and such a trace is taken again. Any failed phase ends the run
@@ -1198,6 +1213,7 @@ def fullscale_phase(args, smi, bench_graph, bench_device_ms):
         "launches_hybrid_train_step": counts["hybrid", "train"]["bsr_spmm"],
         "max_abs_err_fullscale": max(errs.values()),
         "graph": graph,
+        "flat": flat,
     }
 
 
@@ -1327,6 +1343,200 @@ def analysis_phase(smi, bench_graph, x_f, x_r, targets, comp):
             "score_snp_table: the card disagrees with the CPU")
     log(f"  done in {time.perf_counter() - t0:.1f} s")
     return b1_bench
+
+
+def parallel_phase(args, smi, graph, flat):
+    """Phase 19: the parallel paths at full chr1 scale, in-process on the
+    card, and one NCCL rank (see the module doc). ``graph`` and ``flat`` are
+    phase 17's world and its flat operator. Returns B1's numbers for the
+    kernels line."""
+    import torch.distributed as dist
+
+    from chromegcn_tpu_torch.ops import _build
+    from chromegcn_tpu_torch.ops.spmm_bsr import bsr_matmul, bsr_matmul_plain, spmm_bsr
+    from chromegcn_tpu_torch.parallel.graph import (
+        ShardedGraph, attach_shard_bsr, partition_graph, shard_graph, sharded_spmm,
+    )
+    from chromegcn_tpu_torch.parallel.mesh import init_distributed
+    from chromegcn_tpu_torch.train.finetune import chrome_eval_step, chrome_train_step
+
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    x = torch.randn(FULL_PAD, D, device=cuda, generator=gen)
+    ct = torch.randn(FULL_PAD, D, device=cuda, generator=gen)
+    xg = x.clone().requires_grad_()
+    out = spmm_bsr(flat, xg)
+    out.backward(ct)
+    flat_ax, flat_atg = out.detach(), xg.grad
+    del xg, out
+    rng = np.random.default_rng(19)
+    x_f = torch.from_numpy(rng.normal(size=(FULL_PAD, D)).astype(np.float32)).to(cuda)
+    x_r = torch.from_numpy(rng.normal(size=(FULL_PAD, D)).astype(np.float32)).to(cuda)
+    targets = torch.from_numpy((rng.random((FULL_PAD, NCLASS)) < 0.1).astype(np.float32)).to(cuda)
+    g_flat = graph.replace(bsr=flat)
+    errs, launches, event_ms = {}, {}, {}
+
+    for n_shards in (2, 4):
+        tag = f"S={n_shards}"
+        t0 = time.perf_counter()
+        pg = partition_graph(graph, n_shards)
+        torch.cuda.synchronize()
+        t_part = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pg = attach_shard_bsr(pg)
+        torch.cuda.synchronize()
+        t_attach = time.perf_counter() - t0
+        sb, rows = pg.bsr, pg.rows_per_shard
+        log(f"[19 parallel {tag}] {smi}; in-process, {n_shards} shards of {rows} rows: host s "
+            f"partition_graph {t_part:.2f}, attach_shard_bsr {t_attach:.2f}; halo_widths "
+            f"{pg.halo_widths} (halo operator columns {sb.halo_cols})")
+        for s in range(n_shards):
+            halo_nnz = 0 if sb.halo[s] is None else sb.halo[s].fwd.nnz
+            log(f"  shard {s}: local {sb.local[s].fwd.nnz} nonzeros, halo {halo_nnz}")
+        send = sum(pg.halo_widths) * D * 4
+        log(f"  one rank sends {send / 1e6:.3f} MB a product (sum_k H_k d 4 bytes), against the "
+            f"flat x's {FULL_PAD * D * 4 / 1e6:.1f} MB that an all_gather gives every rank")
+        require(sum(sb.local[s].fwd.nnz + (0 if sb.halo[s] is None else sb.halo[s].fwd.nnz)
+                    for s in range(n_shards)) == flat.fwd.nnz,
+                f"{tag}: the shards do not hold the graph's nonzeros")
+
+        # every per-shard B1 launch against its plain version
+        mats = {}
+        for s in range(n_shards):
+            mats[f"shard {s} local fwd"] = (sb.local[s].fwd, x[s * rows:(s + 1) * rows])
+            mats[f"shard {s} local bwd"] = (sb.local[s].bwd, ct[s * rows:(s + 1) * rows])
+            if sb.halo[s] is not None:
+                mats[f"shard {s} halo fwd"] = (sb.halo[s].fwd, x[:sb.halo_cols])
+                mats[f"shard {s} halo bwd"] = (sb.halo[s].bwd, ct[s * rows:(s + 1) * rows])
+        for name, (m, inp) in mats.items():
+            ref = bsr_matmul_plain(m, inp)
+            poison_allocator((m.n_rows, D))
+            errs[f"{tag} {name}"] = compare(f"B1 {tag} {name} d={D}", bsr_matmul(m, inp), ref)
+            del ref
+
+        # the product and its gradient against the flat ones, with launches
+        per_product = sum(1 + (sb.halo[s] is not None) for s in range(n_shards))
+        xg = x.clone().requires_grad_()
+        _build.LAUNCHES.clear()
+        out = sharded_spmm(pg, xg, strategy="halo_bsr")
+        torch.cuda.synchronize()
+        n_fwd = _build.LAUNCHES["bsr_spmm"]
+        _build.LAUNCHES.clear()
+        out.backward(ct)
+        torch.cuda.synchronize()
+        n_bwd = _build.LAUNCHES["bsr_spmm"]
+        log(f"  B1 launches: {n_fwd} for A x, {n_bwd} for A^T g (2 a shard, 1 where its halo "
+            f"is empty: {per_product})")
+        require(n_fwd == n_bwd == per_product, f"{tag}: expected {per_product} B1 launches a product")
+        errs[f"{tag} A x"] = compare(f"{tag} sharded A x vs flat", out.detach(), flat_ax)
+        errs[f"{tag} A^T g"] = compare(f"{tag} sharded A^T g vs flat", xg.grad, flat_atg)
+        del xg, out
+
+        # the unfused train step on the sharded graph against the flat one
+        sg = ShardedGraph(pg=pg, node_mask=graph.node_mask, strategy="halo_bsr",
+                          n_nodes=graph.n_nodes)
+        state_s, state_f = new_state(0.0, "pallas"), new_state(0.0, "pallas")
+        require(not state_s.model._use_fused(x_f, sg), "the fused model fuses on a sharded graph")
+        _build.LAUNCHES.clear()
+        _, loss_s, _ = chrome_train_step(state_s, x_f, x_r, sg, targets)
+        torch.cuda.synchronize()
+        launches[tag] = dict(_build.LAUNCHES)
+        _, loss_f, _ = chrome_train_step(state_f, x_f, x_r, g_flat, targets)
+        rel = abs(loss_s.item() - loss_f.item()) / abs(loss_f.item())
+        log(f"  train step, dropout 0, same weights: loss sharded {loss_s.item():.8f} flat "
+            f"{loss_f.item():.8f} rel diff {rel:.2e} (tol 1e-5); launches {launches[tag]} "
+            f"(8 products' {per_product} each)")
+        require(rel <= 1e-5, f"{tag}: sharded and flat train-step losses disagree")
+        require(launches[tag] == {"bsr_spmm": 8 * per_product},
+                f"{tag}: expected {8 * per_product} B1 launches per train step, and no B2 or B3")
+        check_grads(state_s, state_f)
+        del state_f
+
+        # times: the product against the flat one, each shard's launches
+        # against their bounds (CUDA events), the steps on the host clock
+        fns = {"sharded": lambda: sharded_spmm(pg, x, strategy="halo_bsr"),
+               "flat": lambda: bsr_matmul(flat.fwd, x)}
+        for name, (m, inp) in mats.items():
+            if name.endswith("fwd"):
+                fns[name] = lambda m=m, inp=inp: bsr_matmul(m, inp)
+        with torch.no_grad():
+            t = cuda_ms(fns)
+        med = {k: statistics.median(v) for k, v in t.items()}
+        event_ms[tag] = med["sharded"]
+        b_ms, b_by, _, _ = bound(flat.fwd, D)
+        log(f"  A x at d {D}, ms (CUDA events, median (min-max) of 5 loops of 20 in turns): "
+            f"sharded {spread(t['sharded'])} ({per_product} B1 launches), flat "
+            f"{spread(t['flat'])} ({100 * b_ms / med['flat']:.1f}% of the flat bound "
+            f"{b_ms:.4f} ms by {b_by}; its longest row {int(flat.fwd.row_ptr.diff().max())})")
+        for name, (m, _) in mats.items():
+            if name.endswith("fwd"):
+                bm, by, nbytes, _ = bound(m, D)
+                lengths = m.row_ptr.diff()
+                log(f"    {name}: {spread(t[name])} ms, its bound {bm:.4f} ms by {by} "
+                    f"({nbytes / 1e6:.1f} MB, x {m.n_cols * D * 4 / 1e6:.1f} MB): "
+                    f"{100 * bm / med[name]:.1f}%; {int((lengths > 0).sum())} rows with "
+                    f"entries, the longest {int(lengths.max())}")
+        state_e = new_state(0.0, "pallas")
+        gen_step = torch.Generator(device=cuda).manual_seed(0)
+        peaks = {}
+        for kind, step in (("train", lambda: chrome_train_step(state_s, x_f, x_r, sg, targets,
+                                                               gen_step)),
+                           ("eval", lambda: chrome_eval_step(state_e, x_f, x_r, sg, targets))):
+            step()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step()
+            torch.cuda.synchronize()
+            peaks[kind] = (torch.cuda.max_memory_allocated() - held) / 2**30
+        steps = host_ms({
+            "sharded train": lambda: chrome_train_step(state_s, x_f, x_r, sg, targets, gen_step),
+            "sharded eval": lambda: chrome_eval_step(state_e, x_f, x_r, sg, targets),
+            "flat train": lambda: chrome_train_step(state_e, x_f, x_r, g_flat, targets, gen_step),
+            "flat eval": lambda: chrome_eval_step(state_e, x_f, x_r, g_flat, targets)},
+            iters=3, repeats=3, warmup=1)
+        log(f"  host ms per step, median (min-max) of 3 loops of 3 in turns: sharded train "
+            f"{spread(steps['sharded train'])}, eval {spread(steps['sharded eval'])}; flat train "
+            f"{spread(steps['flat train'])}, eval {spread(steps['flat eval'])}; peak device "
+            f"memory above what the process held, sharded: {peaks['train']:.2f} GiB (train), "
+            f"{peaks['eval']:.2f} GiB (eval)")
+        del state_s, state_e, sg, pg, sb, mats, fns
+
+    # one NCCL rank: the distributed mode's all-reduces run on the card
+    store = tempfile.mkdtemp(prefix="nccl_", dir=os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "build"))
+    try:
+        require(init_distributed("cuda", init_method=f"file://{os.path.join(store, 'store')}",
+                                 world_size=1, rank=0), "no process group")
+        require(dist.get_backend() == "nccl", f"the group runs {dist.get_backend()}, not nccl")
+        sg1 = shard_graph(graph, 1, strategy="halo_bsr", group=dist.group.WORLD)
+        state_n, state_f = new_state(0.0, "pallas"), new_state(0.0, "pallas")
+        _build.LAUNCHES.clear()
+        _, loss_n, probs_n = chrome_train_step(state_n, x_f, x_r, sg1, targets)
+        torch.cuda.synchronize()
+        launches["nccl"] = dict(_build.LAUNCHES)
+        _, loss_f, probs_f = chrome_train_step(state_f, x_f, x_r, g_flat, targets)
+        rel = abs(loss_n.item() - loss_f.item()) / abs(loss_f.item())
+        log(f"[19 parallel, one NCCL rank] {smi}; distributed mode over a 1-rank nccl group "
+            f"(BatchNorm statistics, loss and gradients all-reduced on the card): loss "
+            f"{loss_n.item():.8f} vs the plain step's {loss_f.item():.8f}, rel diff {rel:.2e} "
+            f"(tol 1e-5); launches {launches['nccl']}")
+        require(rel <= 1e-5, "the one-rank NCCL step and the plain step disagree")
+        require(launches["nccl"] == {"bsr_spmm": 8}, "expected 8 B1 launches in the NCCL step")
+        errs["nccl probs"] = compare("NCCL step probs vs plain", probs_n, probs_f)
+        check_grads(state_n, state_f)
+        eval_n = chrome_eval_step(state_n, x_f, x_r, sg1, targets)[0].item()
+        eval_f = chrome_eval_step(state_f, x_f, x_r, g_flat, targets)[0].item()
+        require(abs(eval_n - eval_f) <= 1e-5 * abs(eval_f), "the NCCL eval step disagrees")
+        del state_n, state_f, sg1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return {"max_abs_err_sharded": max(errs.values()),
+            "launches_sharded_train_step": launches["S=4"]["bsr_spmm"],
+            "launches_nccl_train_step": launches["nccl"]["bsr_spmm"],
+            "event_ms_sharded": event_ms}
 
 
 def main():
@@ -2167,11 +2377,16 @@ def main():
     log(f"  done in {time.perf_counter() - t0:.1f} s")
     b1_analysis = analysis_phase(smi, graph, x_f, x_r, targets, comp[cuda])
 
+    # ---- 19. the parallel paths at full chr1 scale ----
+    t0 = time.perf_counter()
+    sharded = parallel_phase(args, smi, full.pop("graph"), full.pop("flat"))
+    log(f"  done in {time.perf_counter() - t0:.1f} s")
+
     # ---- 14. ChromeRNN at bench scale; 15. the joint step ----
     rnn_phase(args, smi, graph, x_f, x_r, targets)
     joint_phase(args, smi, comp[cuda])
 
-    # ---- 19. result ----
+    # ---- 20. result ----
     kernels = [{
         "name": "bsr_spmm",
         "route": "cuda",
@@ -2181,8 +2396,13 @@ def main():
         "launches_hybrid_train_step": full["launches_hybrid_train_step"],
         "launches_hybrid_cli_epoch": pipe_counts["hybrid"]["bsr_spmm"],
         "launches_analysis": b1_analysis,
+        # phase 19: the sharded train step at 4 in-process shards, and the
+        # one-rank NCCL step
+        "launches_sharded_train_step": sharded["launches_sharded_train_step"],
+        "launches_nccl_train_step": sharded["launches_nccl_train_step"],
+        "event_ms_sharded_product": sharded["event_ms_sharded"],
         "max_abs_err": max([v for k, v in errs.items() if k != "library"]
-                           + [full["max_abs_err_fullscale"]]),
+                           + [full["max_abs_err_fullscale"], sharded["max_abs_err_sharded"]]),
         "ms": t_fwd,
         "event_ms_fullscale": full["event_ms_fullscale"],
         "bound_ms_fullscale": full["bound_ms_fullscale"],
@@ -2210,7 +2430,7 @@ def main():
          "chromegcn_tpu/ops/gcn_fused.py:85"),
         ("gcn_fused_bwd", "chromegcn_tpu_torch/csrc/gcn_fused_bwd.cu",
          "chromegcn_tpu/ops/gcn_fused.py:206"))]
-    log(f"[19 done] in {time.perf_counter() - t_start:.1f} s")
+    log(f"[20 done] in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

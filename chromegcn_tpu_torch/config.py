@@ -106,7 +106,7 @@ class Config:
     name: Optional[str] = None
     name2: Optional[str] = None
 
-    # parallelism (the port runs one device; > 1 is ROADMAP A13)
+    # parallelism: > 1 runs as that many torch.distributed ranks (train/runner.py)
     dp_devices: int = 1            # data-parallel mesh size for CNN stage
     graph_devices: int = 1         # node-partition mesh size for GCN stage
     tp_devices: int = 1            # tensor-parallel shards for the CNN feature kernel

@@ -43,18 +43,31 @@ from chromegcn_tpu_torch.ops.gcn_fused import fused_fits, fused_gated_layer
 from chromegcn_tpu_torch.ops.sparse import SparseGraph
 from chromegcn_tpu_torch.ops.spmm import spmm
 from chromegcn_tpu_torch.ops.spmm_bsr import BSROperator
+from chromegcn_tpu_torch.parallel.mesh import all_gather_rows, group_rank
 
 
 def _dropout(
-    x: torch.Tensor, p: float, train: bool, generator: Optional[torch.Generator]
+    x: torch.Tensor, p: float, train: bool, generator: Optional[torch.Generator],
+    group=None,
 ) -> torch.Tensor:
     """Inverted dropout drawing its mask from ``generator`` (flax semantics:
-    keep with probability 1-p, scale kept values by 1/(1-p))."""
+    keep with probability 1-p, scale kept values by 1/(1-p)).
+
+    ``x`` row-sharded over ``group``: every rank draws the whole mask from
+    its generator, which all ranks seed alike, and keeps its rows. So the
+    ranks drop as one device would from the same generator, and leave it in
+    the same state."""
     if not train or p == 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    if group is None:
+        keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    else:
+        rank, world = group_rank(group)
+        n = x.shape[0]
+        keep = x.new_empty((world * n,) + x.shape[1:]).bernoulli_(1.0 - p, generator=generator)
+        keep = keep[rank * n:(rank + 1) * n]
     return torch.where(keep.bool(), x / (1.0 - p), torch.zeros_like(x))
 
 
@@ -242,17 +255,18 @@ class ChromeGCN(nn.Module):
         features."""
         if node_mask is None and graph is not None:
             node_mask = graph.node_mask
+        group = getattr(graph, "group", None)
         use_fused = self._use_fused(x_in, graph)
         x, g = self._gated_layer(self.GC1, self.W1, x_in, graph, use_fused)
 
         g2 = None
         if self.layers == 2:
-            x = _dropout(x, self.dropout, train, generator)
+            x = _dropout(x, self.dropout, train, generator, group)
             x, g2 = self._gated_layer(self.GC2, self.W2, x, graph, use_fused)
 
         h = torch.relu(x)
-        h = self.batch_norm(h, use_running_average=not train, mask=node_mask)
-        h = _dropout(h, self.dropout, train, generator)
+        h = self.batch_norm(h, use_running_average=not train, mask=node_mask, group=group)
+        h = _dropout(h, self.dropout, train, generator, group)
         if skip_head:
             return x, h, (g, g2)
         return x, self.out(h), (g, g2)
@@ -272,7 +286,10 @@ class ChromeRNN(nn.Module):
     The padded suffix is part of the sequence, as in the reference: the
     reverse direction reads it before the last valid window, so each valid
     output depends on the node bucket. ``graph`` is read only for its
-    ``node_mask``. Returns (x_in, logits or features, (None, None))."""
+    ``node_mask`` and, on a graph row-sharded over a process group, its
+    ``group``: then each rank gathers the whole sequence, runs it, and keeps
+    its rows (the ranks' generators agree, so that their dropout masks do).
+    Returns (x_in, logits or features, (None, None))."""
 
     def __init__(self, nfeat: int = 128, nclass: int = 919, dropout: float = 0.2,
                  layers: int = 2):
@@ -307,14 +324,21 @@ class ChromeRNN(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[None, None]]:
         if node_mask is None and graph is not None:
             node_mask = graph.node_mask
-        x = x_in[None]  # (1, N, d): the chromosome as one sequence
+        group = getattr(graph, "group", None)
+        # row-sharded over a process group: every rank runs the whole
+        # sequence and keeps its own rows
+        x = x_in if group is None else all_gather_rows(x_in, group)
+        x = x[None]  # (1, N, d): the chromosome as one sequence
         for i, lstm in enumerate(self.rnn):
             x = lstm_forward(lstm, x)
             if i + 1 < len(self.rnn):
                 x = _dropout(x, self.dropout, train, generator)
         h = torch.relu(x[0])
-        h = self.batch_norm(h, use_running_average=not train, mask=node_mask)
-        h = _dropout(h, self.dropout, train, generator)
+        if group is not None:
+            rank, _ = group_rank(group)
+            h = h[rank * x_in.shape[0]:(rank + 1) * x_in.shape[0]]
+        h = self.batch_norm(h, use_running_average=not train, mask=node_mask, group=group)
+        h = _dropout(h, self.dropout, train, generator, group)
         if skip_head:
             return x_in, h, (None, None)
         return x_in, self.out(h), (None, None)

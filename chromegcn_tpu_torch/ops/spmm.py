@@ -14,6 +14,11 @@
   ``spmm_pallas`` dispatches them.
 - ``'auto'``   -> ``'pallas'`` when the graph carries an operator form, else ``'xla'``.
 
+A node-sharded ``parallel.graph.ShardedGraph`` goes to ``sharded_spmm``
+whatever ``impl`` says: its strategy already names the per-shard product
+(B1 over each shard's forms, or a gather and ``index_add_``), as the
+reference's dispatch does (ops/spmm.py:86-91).
+
 ``sddmm`` is the gradient of the product with respect to the edge values,
 for adjacency saliency (analysis/saliency.py).
 """
@@ -27,6 +32,7 @@ from chromegcn_tpu_torch.ops.spmm_bsr import (
     BSROperator, BSRPanelOperator, spmm_bsr, spmm_bsr_panels,
 )
 from chromegcn_tpu_torch.ops.spmm_hybrid import HybridOperator, spmm_hybrid
+from chromegcn_tpu_torch.parallel.graph import ShardedGraph, sharded_graph_spmm
 
 
 def spmm_coo(graph: SparseGraph, x: torch.Tensor) -> torch.Tensor:
@@ -60,6 +66,8 @@ def spmm_operator(op, x: torch.Tensor) -> torch.Tensor:
 def spmm(graph: SparseGraph, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """Sparse-matrix x dense-matrix product over a SparseGraph; ``impl`` as
     in the module docstring."""
+    if isinstance(graph, ShardedGraph):
+        return sharded_graph_spmm(graph, x)
     if impl == "auto":
         impl = "pallas" if graph.bsr is not None else "xla"
     if impl == "xla":

@@ -32,7 +32,9 @@ def save_checkpoint(
     score: Optional[float] = None,
 ) -> str:
     """Write ``state`` (a WindowTrainState or ChromeTrainState: its model
-    and optimizer) and the epoch; returns the path."""
+    and optimizer; or their ``{"model": ..., "optimizer": ...}`` state_dicts,
+    as ``parallel.tp.full_payload`` gathers them) and the epoch; returns the
+    path."""
     if save_mode == "all" and score is not None:
         name = f"ckpt_epoch{epoch}_score{100 * score:.3f}.pt"
     else:
@@ -56,6 +58,8 @@ def save_joint_checkpoint(run_dir: str, wstate, cstate, epoch: int) -> str:
 
 
 def _state_payload(state) -> Dict[str, Any]:
+    if isinstance(state, dict):
+        return state
     return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict()}
 
 

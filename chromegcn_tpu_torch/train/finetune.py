@@ -8,6 +8,13 @@ update per pass; the head is linear, so it is applied once to the
 strand-averaged penultimate features, which equals averaging the two
 strands' logits (reference: finetune.py:41-45).
 
+On a graph row-sharded over a process group (``parallel.graph.ShardedGraph``
+with a ``group``) the steps take this rank's rows: the model's BatchNorm and
+the loss reduce over the group, and after backward each parameter's
+gradient is summed over it (``parallel.mesh.all_reduce_grads``), since each
+rank holds its part of one global mean's gradient. ``run_chrome_epoch``
+places each chromosome's rows with ``place`` and gathers the predictions.
+
 f32 path: the reference runs its SpMM at Precision.HIGHEST and its GEMMs
 f32-faithful, so ``create_chrome_state`` turns TF32 off for CUDA matmuls
 and cuDNN (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -26,6 +33,7 @@ from torch import nn
 from chromegcn_tpu_torch import DeviceLike, resolve_device
 from chromegcn_tpu_torch.data.loader import ChromFeatures
 from chromegcn_tpu_torch.ops.sparse import SparseGraph
+from chromegcn_tpu_torch.parallel.mesh import all_reduce_grads, gather_rows
 from chromegcn_tpu_torch.train.loss import bce_with_logits
 from chromegcn_tpu_torch.train.optim import make_optimizer
 
@@ -118,8 +126,10 @@ def chrome_train_step(
     _, h_f, _ = model(x_f, graph, train=True, skip_head=True, generator=generator)
     _, h_r, _ = model(x_r, graph, train=True, skip_head=True, generator=generator)
     pred = model.out((h_f + h_r) / 2.0)
-    loss = bce_with_logits(pred, targets, graph.node_mask)
+    group = getattr(graph, "group", None)
+    loss = bce_with_logits(pred, targets, graph.node_mask, group)
     loss.backward()
+    all_reduce_grads(model.parameters(), group)
     opt.step()
     state.step += 1
     return state, loss.detach(), torch.sigmoid(pred.detach())
@@ -141,7 +151,7 @@ def chrome_eval_step(
     _, h_f, _ = model(x_f, graph, train=False, skip_head=True)
     _, h_r, _ = model(x_r, graph, train=False, skip_head=True)
     pred = model.out((h_f + h_r) / 2.0)
-    loss = bce_with_logits(pred, targets, graph.node_mask)
+    loss = bce_with_logits(pred, targets, graph.node_mask, getattr(graph, "group", None))
     return loss, torch.sigmoid(pred)
 
 
@@ -165,24 +175,31 @@ def run_chrome_epoch(
     train: bool,
     generator: Optional[torch.Generator] = None,
     device: DeviceLike = "cuda",
+    place=None,
 ) -> Tuple[ChromeTrainState, np.ndarray, np.ndarray, float]:
     """One epoch = one pass over all chromosomes of a split
     (reference: finetune.py:29-55). Returns dataset-order preds/targets and
-    the summed loss."""
+    the summed loss. ``place`` picks this rank's rows of each padded array
+    (``parallel.mesh.node_sharding``) where the graphs are row-sharded over
+    a process group; the predictions are gathered back."""
     device = resolve_device(device)
+    place = place or (lambda arr: arr)
     preds_parts, targ_parts, losses, valid_counts = [], [], [], []
     for chrom, cf in features.items():
         graph = graphs[chrom]
         n_pad = graph.n_nodes
-        x_f = pad_rows(cf.forward, n_pad)
-        x_r = pad_rows(cf.backward, n_pad)
-        targets = pad_rows(cf.target, n_pad)
+        x_f = place(pad_rows(cf.forward, n_pad))
+        x_r = place(pad_rows(cf.backward, n_pad))
+        targets = place(pad_rows(cf.target, n_pad))
         if train:
             state, loss, probs = chrome_train_step(
                 state, x_f, x_r, graph, targets, generator, device=device
             )
         else:
             loss, probs = chrome_eval_step(state, x_f, x_r, graph, targets, device=device)
+        group = getattr(graph, "group", None)
+        if group is not None:
+            probs = gather_rows(probs, group)
         # keep device tensors; one copy after the loop lets the steps queue
         preds_parts.append(probs)
         targ_parts.append(cf.target[: cf.forward.shape[0]])

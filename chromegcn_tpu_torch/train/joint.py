@@ -10,6 +10,12 @@ features of both strands then go through the chrome model's two strand
 passes, the head is applied once to the strand-averaged features, and the
 masked BCE backpropagates through both stages; both optimizers step.
 
+On a graph row-sharded over a process group (``-graph_devices``, each rank
+one shard) each rank runs the CNN over its own rows' chunks, so the
+features come out sharded as the sharded GCN reads them (the reference's
+shard_map over the chunk loop, joint.py:33-77); the loss reduces over the
+group and both models' gradients are summed over it after backward.
+
 The CNN runs in eval mode with its parameters trainable: frozen BatchNorm
 statistics and no dropout. This follows the reference's code, which calls
 the window model with ``train=False`` (joint.py:54), not its docstring
@@ -25,6 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from chromegcn_tpu_torch import DeviceLike, resolve_device
 from chromegcn_tpu_torch.ops.sparse import SparseGraph
+from chromegcn_tpu_torch.parallel.graph import ShardedGraph
+from chromegcn_tpu_torch.parallel.mesh import all_reduce_grads
 from chromegcn_tpu_torch.train.finetune import ChromeTrainState, _on
 from chromegcn_tpu_torch.train.loss import bce_with_logits
 from chromegcn_tpu_torch.train.pretrain import WindowTrainState
@@ -35,10 +43,10 @@ def _cnn_features(window_model, tokens: torch.Tensor, comp_map: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both strands' (N, d) features of a chromosome's (N, L) tokens, in
     chunks of ``chunk_size`` windows; each chunk is recomputed in the
-    backward pass where autograd records and ``remat`` is on."""
-    if not isinstance(graph, SparseGraph):
-        raise NotImplementedError(
-            "joint mode over a node-sharded graph is not ported yet: ROADMAP A13")
+    backward pass where autograd records and ``remat`` is on. On a
+    row-sharded graph ``tokens`` are this rank's rows."""
+    if not isinstance(graph, (SparseGraph, ShardedGraph)):
+        raise TypeError(f"joint mode takes a SparseGraph or a ShardedGraph, got {type(graph)}")
     n = tokens.shape[0]
     if n % chunk_size:
         raise ValueError(f"pad the node count ({n}) to a multiple of chunk_size ({chunk_size})")
@@ -69,7 +77,7 @@ def joint_loss(wstate: WindowTrainState, cstate: ChromeTrainState, tokens, comp_
     # the head is linear: once over the strand average = the average of the
     # strands' logits (train/finetune.py)
     pred = model.out((h_f + h_r) / 2.0)
-    return bce_with_logits(pred, targets, graph.node_mask), pred
+    return bce_with_logits(pred, targets, graph.node_mask, getattr(graph, "group", None)), pred
 
 
 def joint_train_step(
@@ -94,6 +102,8 @@ def joint_train_step(
     loss, _ = joint_loss(wstate, cstate, tokens, comp_map, graph, targets, generator,
                          chunk_size)
     loss.backward()
+    group = getattr(graph, "group", None)
+    all_reduce_grads(list(wstate.model.parameters()) + list(cstate.model.parameters()), group)
     wstate.optimizer.step()
     cstate.optimizer.step()
     wstate.step += 1

@@ -1,5 +1,11 @@
 """Binary cross-entropy with logits, row-masked for padding (port of
-chromegcn_tpu/train/loss.py; reference: finetune.py:45, mean reduction)."""
+chromegcn_tpu/train/loss.py; reference: finetune.py:45, mean reduction).
+
+With a process group (each rank holding its own rows) the masked sum and
+the count are all-reduced over it, so every rank holds the global mean. Its
+backward passes the cotangent through: every rank differentiates the same
+loss from 1, so each gets its own rows' part of the gradient, and the steps
+sum the parameters' gradients over the group (``parallel/mesh.py``)."""
 
 from __future__ import annotations
 
@@ -7,11 +13,14 @@ from typing import Optional
 
 import torch
 
+from chromegcn_tpu_torch.parallel.mesh import reduce_replicated
+
 
 def bce_with_logits(
     logits: torch.Tensor,
     targets: torch.Tensor,
     row_mask: Optional[torch.Tensor] = None,
+    group=None,
 ) -> torch.Tensor:
     """Mean BCE-with-logits over valid rows, in the stable form
     max(x,0) - x*z + log1p(exp(-|x|)), in f32 (or float64 for float64
@@ -21,12 +30,14 @@ def bce_with_logits(
       logits: (N, L) raw scores.
       targets: (N, L) {0,1} labels (any float/int dtype).
       row_mask: optional (N,) bool; False rows are excluded from the mean.
+      group: optional process group over which the rows are sharded.
     """
     x = logits.to(torch.promote_types(logits.dtype, torch.float32))
     z = targets.to(x.dtype)
     per_elem = x.clamp(min=0.0) - x * z + torch.log1p(torch.exp(-x.abs()))
     if row_mask is None:
-        return per_elem.mean()
+        row_mask = torch.ones(per_elem.shape[0], dtype=torch.bool, device=per_elem.device)
     m = row_mask.to(x.dtype)[:, None]
-    denom = (m.sum() * per_elem.shape[1]).clamp(min=1.0)
-    return (per_elem * m).sum() / denom
+    # the masked sum and the count, summed over the group's ranks if any
+    num, count = reduce_replicated(torch.stack([(per_elem * m).sum(), m.sum()]), group)
+    return num / (count * per_elem.shape[1]).clamp(min=1.0)

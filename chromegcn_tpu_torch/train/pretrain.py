@@ -11,6 +11,14 @@ and copies them to the host every DRAIN_EVERY batches, as the JAX package
 drains its dispatches (pretrain.py:141-154), so the host does not wait for
 the card after every batch.
 
+Data parallelism (``-dp_devices``): a state whose ``group`` is a process
+group of data ranks trains on each rank's slice of every batch
+(``parallel.multihost.host_batch_slice``); its BatchNorms take the global
+batch's statistics (``models.norm.sync_batch_norm``), the masked loss is
+the global mean, the gradients are summed over the group, and the epoch
+gathers the predictions and features back, so every rank holds what one
+device would.
+
 Deliberate differences from the JAX package (jax.random draws cannot be
 reproduced without jax): dropout masks come from a ``torch.Generator`` and
 the shuffle order from a numpy generator, both seeded from ``-seed`` by the
@@ -39,7 +47,10 @@ from torch import nn
 
 from chromegcn_tpu_torch import DeviceLike, resolve_device
 from chromegcn_tpu_torch.data.loader import ChromFeatures, WindowDataset, iterate_batches
+from chromegcn_tpu_torch.models.norm import sync_batch_norm
 from chromegcn_tpu_torch.models.strand import NonStrandSpecific
+from chromegcn_tpu_torch.parallel.mesh import all_reduce_grads, gather_rows, group_rank
+from chromegcn_tpu_torch.parallel.multihost import host_batch_slice
 from chromegcn_tpu_torch.train.finetune import _on
 from chromegcn_tpu_torch.train.loss import bce_with_logits
 from chromegcn_tpu_torch.train.optim import make_optimizer
@@ -53,6 +64,17 @@ class WindowTrainState:
     model: NonStrandSpecific
     optimizer: torch.optim.Optimizer
     step: int = 0
+    # the data-parallel process group, or None on one rank
+    group: Optional[torch.distributed.ProcessGroup] = None
+
+
+def data_parallel(state: WindowTrainState, group) -> WindowTrainState:
+    """The state trained data-parallel over ``group``: BatchNorm statistics
+    synced over it, the loss and the gradients reduced over it."""
+    if group is not None:
+        sync_batch_norm(state.model, group)
+        state.group = group
+    return state
 
 
 def create_window_state(
@@ -88,15 +110,17 @@ def window_train_step(
     BatchNorm statistics pool every row of the 2B strand batch, padding rows
     included (the window model gets no mask); only the loss excludes the
     rows ``row_mask`` marks False. Updates the model and optimizer in place;
-    dropout masks come from ``generator``."""
+    dropout masks come from ``generator``. Under data parallelism the
+    arrays are this rank's rows of the batch, and the probabilities too."""
     device = resolve_device(device)
     tokens, targets, row_mask = _on(device, tokens, targets, row_mask)
     model, opt = state.model, state.optimizer
     model.train()
     opt.zero_grad(set_to_none=True)
     _, _, logits = model(tokens, comp_map, generator=generator)
-    loss = bce_with_logits(logits, targets, row_mask)
+    loss = bce_with_logits(logits, targets, row_mask, state.group)
     loss.backward()
+    all_reduce_grads(model.parameters(), state.group)
     opt.step()
     state.step += 1
     return state, loss.detach(), torch.sigmoid(logits.detach())
@@ -117,7 +141,8 @@ def window_eval_step(
     tokens, targets, row_mask = _on(device, tokens, targets, row_mask)
     state.model.eval()
     x_f, x_r, logits = state.model(tokens, comp_map)
-    return bce_with_logits(logits, targets, row_mask), torch.sigmoid(logits), x_f, x_r
+    loss = bce_with_logits(logits, targets, row_mask, state.group)
+    return loss, torch.sigmoid(logits), x_f, x_r
 
 
 def run_window_epoch(
@@ -174,17 +199,22 @@ def run_window_epoch(
                 feats_r[rows] = xr[i][b.row_mask]
         pending.clear()
 
+    group = state.group
+    rank, world = group_rank(group)
+    lo, hi = host_batch_slice(batch_size, rank, world)
     for batch in iterate_batches(dataset, batch_size, shuffle=shuffle, rng=rng):
         x_f = x_r = None
+        rows = (batch.tokens[lo:hi], batch.targets[lo:hi], batch.row_mask[lo:hi])
         if train:
             state, loss, probs = window_train_step(
-                state, batch.tokens, batch.targets, batch.row_mask, comp_map,
-                generator, device=device,
+                state, *rows, comp_map, generator, device=device,
             )
         else:
-            loss, probs, x_f, x_r = window_eval_step(
-                state, batch.tokens, batch.targets, batch.row_mask, comp_map, device=device
-            )
+            loss, probs, x_f, x_r = window_eval_step(state, *rows, comp_map, device=device)
+        if group is not None:
+            probs = gather_rows(probs, group)
+            if collect_features:
+                x_f, x_r = gather_rows(x_f, group), gather_rows(x_r, group)
         pending.append((loss, probs, x_f, x_r, batch))
         if len(pending) >= DRAIN_EVERY:
             drain()

@@ -15,8 +15,19 @@ tracks the best epoch and checkpoints (reference: runner.py:62-271,
 361-514). The files it reads and writes have the JAX package's names and
 formats, apart from the checkpoints (train/checkpoint.py).
 
-Modes the port lacks raise NotImplementedError naming their ROADMAP item:
-more than one device (A13).
+More than one device (reference: runner.py:80-118, 321-381, 578-639): the
+process must be one of N ranks of ``torch.distributed`` (``torchrun
+--nproc_per_node N -m chromegcn_tpu_torch.main ...``; gloo for CPU
+tensors, NCCL for CUDA ones), or the mesh raises.
+- ``-graph_devices N``: every chromosome graph is cut into N row shards, a
+  rank's model sees its own rows, and the halo exchange runs between ranks
+  (parallel/graph.py); joint mode runs each rank's rows through the CNN;
+- ``-dp_devices N``: each rank trains on its slice of every batch;
+- ``-tp_devices M``: the window model's large Linear layers are sliced over
+  M ranks (parallel/tp.py); with ``-dp_devices`` too, a dp x tp mesh, the
+  model axis minor.
+Every rank computes the same metrics from gathered predictions; only rank 0
+writes logs, features and checkpoints.
 """
 
 from __future__ import annotations
@@ -43,6 +54,11 @@ from chromegcn_tpu_torch.ops.seq import complement_permutation
 from chromegcn_tpu_torch.ops.sparse import SparseGraph, build_chrom_graph
 from chromegcn_tpu_torch.ops.spmm_bsr import BSROperator
 from chromegcn_tpu_torch.ops.spmm_hybrid import HybridOperator, attach_auto
+from chromegcn_tpu_torch.parallel import tp
+from chromegcn_tpu_torch.parallel.graph import shard_graph
+from chromegcn_tpu_torch.parallel.mesh import (
+    gather_rows, init_distributed, make_mesh, make_mesh_2d, node_sharding,
+)
 from chromegcn_tpu_torch.train import checkpoint as ckpt
 from chromegcn_tpu_torch.train import finetune as ft
 from chromegcn_tpu_torch.train import pretrain as pt
@@ -75,25 +91,41 @@ def _metrics_for(preds, targs, loss, elapsed, cfg: Config, label_names):
     )
 
 
-def check_ported(cfg: Config) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for a mode or
-    flag the port does not have yet."""
-    missing = []
-    if max(cfg.graph_devices, cfg.dp_devices, cfg.tp_devices) > 1:
-        missing.append(
-            "-graph_devices / -dp_devices / -tp_devices > 1 (the parallel paths): "
-            "ROADMAP A13"
-        )
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+def _quiet(*_):
+    pass
+
+
+def _window_mesh(cfg: Config, verbose):
+    """The pretrain's mesh (reference: runner.py:80-118): dp x tp, tp, dp, or
+    None on one device."""
+    dp, tp_n = cfg.dp_devices, cfg.tp_devices
+    if dp > 1 and cfg.batch_size % dp != 0:
+        raise ValueError(f"batch_size={cfg.batch_size} must divide dp_devices={dp}")
+    if dp > 1 and tp_n > 1:
+        verbose(f"2D mesh pretrain: dp={dp} x tp={tp_n}")
+        return make_mesh_2d(dp, tp_n, axes=("data", "model"))
+    if tp_n > 1:
+        verbose(f"tensor-parallel pretrain over {tp_n} devices")
+        return make_mesh(tp_n, axis="model")
+    if dp > 1:
+        verbose(f"data-parallel pretrain over {dp} devices")
+        return make_mesh(dp, axis="data")
+    return None
 
 
 def run_pretrain(cfg: Config, splits: Dict[str, WindowDataset],
                  device: DeviceLike = "cuda", verbose=print):
     """Pretrain the window CNN, or dump its features (``-save_feats``);
-    returns (state, tracker). Reference: runner.py:62-271, less the
-    data- and tensor-parallel meshes (:80-118, ROADMAP A13)."""
+    returns (state, tracker). Reference: runner.py:62-271, with its data-
+    and tensor-parallel meshes (:80-118)."""
     device = resolve_device(device)
+    mesh = _window_mesh(cfg, verbose)
+    axes = () if mesh is None else mesh.axes
+    main = mesh is None or mesh.rank == 0
+    verbose = verbose if main else _quiet
+    # the data rank offsets the dropout streams; the model ranks of one data
+    # row must draw alike, their activations being replicated
+    seed = cfg.seed + (mesh.index("data") if "data" in axes else 0)
     train_ds = splits["train"]
     label_names = list(train_ds.tgt_vocab.keys())
 
@@ -106,8 +138,8 @@ def run_pretrain(cfg: Config, splits: Dict[str, WindowDataset],
     comp_map = torch.as_tensor(complement_permutation(train_ds.src_vocab), device=device)
     # dropout masks: the model's from this generator; DanQ's LSTM draws its
     # inter-layer dropout from the device's default generator, seeded here
-    torch.manual_seed(cfg.seed)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    torch.manual_seed(seed)
+    generator = torch.Generator(device=device).manual_seed(seed)
     shuffle_rng = np.random.default_rng(cfg.seed)
 
     run_dir = cfg.stage1_run_dir
@@ -134,9 +166,21 @@ def run_pretrain(cfg: Config, splits: Dict[str, WindowDataset],
         state.optimizer.load_state_dict(restored["optimizer"])
         start_epoch = int(restored["epoch"]) + 1
         verbose(f"resumed pretraining at epoch {start_epoch}")
+    # placed after the restores, which read the single-device layout
+    if "model" in axes:
+        state = tp.place_window_state(state, mesh)
+    if "data" in axes:
+        state = pt.data_parallel(state, mesh.group("data"))
+
+    def save(epoch, score):
+        # a collective under TP: every rank gathers, rank 0 writes
+        payload = tp.full_payload(state) if "model" in axes else state
+        if main:
+            ckpt.save_checkpoint(run_dir, payload, epoch, cfg.save_mode, score)
+
     # save_feats shares stage 1's run directory: append, keeping the
     # pretrain epochs' rows (reference: runner.py:162-165)
-    logger = EpochLogger(run_dir, append=start_epoch > 1 or cfg.save_feats)
+    logger = EpochLogger(run_dir, append=start_epoch > 1 or cfg.save_feats, writes=main)
     if start_epoch > 1 and logger.best_valid_metric > 0:
         # the pre-resume best seeds the checkpoint-save gate
         score_history.append(logger.best_valid_metric)
@@ -199,12 +243,13 @@ def run_pretrain(cfg: Config, splits: Dict[str, WindowDataset],
             # every split's features, in eval mode (reference: runner.py:223-238)
             for split in ("train", "valid", "test"):
                 feats = test_feats if split == "test" else epoch_pass(split, collect_features=True)[4]
-                save_chrom_features(cfg.feature_path(split), feats)
+                if main:
+                    save_chrom_features(cfg.feature_path(split), feats)
                 verbose(f"saved features: {cfg.feature_path(split)}")
         elif valid_metrics is not None:
             logger.maybe_snapshot(epoch, valid_loss, score, *valid_out, test_preds, test_targs)
             if cfg.pretrain and (cfg.save_mode == "all" or score >= max(score_history)):
-                ckpt.save_checkpoint(run_dir, state, epoch, cfg.save_mode, score)
+                save(epoch, score)
         verbose(
             f"epoch {epoch}: test meanAUC={test_metrics['meanAUC']:.4f} "
             f"meanAUPR={test_metrics['meanAUPR']:.4f} loss={test_loss:.3f} "
@@ -239,6 +284,7 @@ def build_split_graphs(
     device: DeviceLike = "cuda",
     edge_capacity: Optional[int] = None,
     verbose=print,
+    n_shards: int = 1,
 ) -> Dict[str, SparseGraph]:
     """Per-chromosome SparseGraphs of one split on ``device``, with the Hi-C
     edges loaded where the adjacency needs them (reference: runner.py:281-318).
@@ -246,19 +292,22 @@ def build_split_graphs(
     Where the block-sparse path is in play, each graph gets the operator
     form ``-spmm_form`` names (ops/spmm_hybrid.py:attach_auto): the flat BSR
     form, the hybrid one, or for 'auto' whichever the card's cost model
-    finds cheaper."""
+    finds cheaper. ``n_shards`` > 1 pads to lcm(2048, 128 n_shards), so
+    each shard's rows are a multiple of the 128-row tile, and attaches no
+    flat form: ``shard_split_graphs`` builds the per-shard ones."""
     device = resolve_device(device)
     hic_edges = None
     if cfg.adj_type in ("hic", "both"):
         hic_edges = artifact.load_graph_edges(cfg.graph_path(split))
-    use_bsr = _use_bsr(cfg, device)
+    use_bsr = _use_bsr(cfg, device) and n_shards <= 1
+    bucket = 2048 if n_shards <= 1 else int(np.lcm(2048, 128 * n_shards))
     graphs = {}
     for chrom, cf in features.items():
         n_valid = cf.forward.shape[0]
         g = build_chrom_graph(
             cfg.adj_type,
             n_valid=n_valid,
-            n_pad=ft.bucket_nodes(n_valid),
+            n_pad=ft.bucket_nodes(n_valid, bucket=bucket),
             edge_capacity=edge_capacity,
             hic_edges=None if hic_edges is None else hic_edges[chrom],
             device=device,
@@ -275,6 +324,33 @@ def build_split_graphs(
     return graphs
 
 
+def _graph_strategy(cfg: Config, device: torch.device) -> str:
+    """-graph_strategy, 'auto' resolved as the reference does: halo_bsr where
+    the kernel path is in play, else halo."""
+    if cfg.graph_strategy != "auto":
+        return cfg.graph_strategy
+    return "halo_bsr" if _use_bsr(cfg, device) else "halo"
+
+
+def shard_split_graphs(cfg: Config, graphs, mesh, device: DeviceLike = "cuda",
+                       verbose=print):
+    """Cut every chromosome graph into the mesh's 'graph' shards and return
+    (sharded graphs, placement of each chromosome's rows); reference:
+    runner.py:321-358. This rank builds only its own shard's block-sparse
+    forms."""
+    device = resolve_device(device)
+    strategy = _graph_strategy(cfg, device)
+    group = mesh.group("graph")
+    sharded = {
+        split: {chrom: shard_graph(g, mesh.size("graph"), strategy=strategy,
+                                   spmm_dtype=cfg.spmm_dtype, group=group)
+                for chrom, g in per.items()}
+        for split, per in graphs.items()
+    }
+    verbose(f"node-sharded GCN over {mesh.size('graph')} devices (strategy={strategy})")
+    return sharded, node_sharding(mesh)
+
+
 def apply_matmul_precision(cfg: Config) -> None:
     """The process-wide matmul precision: 'high' and 'highest' keep float32
     matmuls and convolutions f32-faithful (TF32 off, and cuDNN off: its f32
@@ -287,8 +363,14 @@ def apply_matmul_precision(cfg: Config) -> None:
 
 
 def run_finetune(cfg: Config, device: DeviceLike = "cuda", verbose=print):
-    """Train the chromosome model on saved CNN features. Returns (state, tracker)."""
+    """Train the chromosome model on saved CNN features. Returns (state, tracker).
+
+    With ``-graph_devices N`` (reference: runner.py:361-381) this process is
+    one of N ranks and trains on its rows of every chromosome."""
     device = resolve_device(device)
+    mesh = make_mesh(cfg.graph_devices, axis="graph") if cfg.graph_devices > 1 else None
+    main = mesh is None or mesh.rank == 0
+    verbose = verbose if main else _quiet
     features = {
         split: load_chrom_features(cfg.feature_path(split))
         for split in ("train", "valid", "test")
@@ -297,9 +379,13 @@ def run_finetune(cfg: Config, device: DeviceLike = "cuda", verbose=print):
     label_names = [f"label{i}" for i in range(n_targets)]
 
     graphs = {
-        split: build_split_graphs(cfg, features[split], split, device, verbose=verbose)
+        split: build_split_graphs(cfg, features[split], split, device, verbose=verbose,
+                                  n_shards=cfg.graph_devices)
         for split in ("train", "valid", "test")
     }
+    place = None
+    if mesh is not None:
+        graphs, place = shard_split_graphs(cfg, graphs, mesh, device, verbose=verbose)
 
     model = make_chrome_model(
         cfg.chrome_model, nclass=n_targets, dropout=cfg.gcn_dropout,
@@ -340,18 +426,20 @@ def run_finetune(cfg: Config, device: DeviceLike = "cuda", verbose=print):
         )
 
     tracker = BestTracker()
-    logger = EpochLogger(run_dir, append=start_epoch > 1)
+    logger = EpochLogger(run_dir, append=start_epoch > 1, writes=main)
     score_history = []
     if start_epoch > 1 and logger.best_valid_metric > 0:
         # the pre-resume best seeds the checkpoint-save gate
         score_history.append(logger.best_valid_metric)
     since_improve = 0
+    # one seed on every graph rank: a row-sharded dropout draws the whole
+    # mask and keeps its rows (models/chrome.py:_dropout)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
     def epoch_pass(split: str, train: bool):
         return ft.run_chrome_epoch(
             state, features[split], graphs[split], train=train,
-            generator=generator if train else None, device=device,
+            generator=generator if train else None, device=device, place=place,
         )
 
     for epoch in range(start_epoch, cfg.epochs + 1):
@@ -392,7 +480,7 @@ def run_finetune(cfg: Config, device: DeviceLike = "cuda", verbose=print):
             logger.maybe_snapshot(
                 epoch, valid_loss, score, *valid_out, test_preds, test_targs
             )
-            if cfg.save_mode == "all" or score >= max(score_history):
+            if main and (cfg.save_mode == "all" or score >= max(score_history)):
                 ckpt.save_checkpoint(run_dir, state, epoch, cfg.save_mode, score)
         verbose(
             f"epoch {epoch}: test meanAUC={test_metrics['meanAUC']:.4f} "
@@ -415,9 +503,12 @@ def run_finetune(cfg: Config, device: DeviceLike = "cuda", verbose=print):
 def run(cfg: Config, splits: Optional[Dict[str, WindowDataset]] = None,
         device: DeviceLike = None, verbose=print):
     """Top-level dispatch (reference: runner.py:536-545); ``splits`` default
-    to the dataset file's, ``device`` to the card."""
-    check_ported(cfg)
+    to the dataset file's, ``device`` to the card. With more than one device
+    asked for, joins the process group this process was launched into
+    (``parallel.mesh.init_distributed``)."""
     device = resolve_device(device)
+    if max(cfg.graph_devices, cfg.dp_devices, cfg.tp_devices) > 1:
+        init_distributed(device)
     if cfg.joint:
         return run_joint(cfg, splits, device=device, verbose=verbose)
     if cfg.pretrain or cfg.save_feats:
@@ -443,17 +534,23 @@ def run_joint(cfg: Config, splits: Optional[Dict[str, WindowDataset]] = None,
     1's checkpoint where there is one. Each epoch trains every chromosome of
     the train split (its log line has the loss only), evaluates valid and
     test, and saves both stages when the valid score improves; there is no
-    LR schedule and no early stop, as in the reference."""
+    LR schedule and no early stop, as in the reference.
+
+    With ``-graph_devices N`` (reference: runner.py:578-639) this process is
+    one of N ranks: the bucket is lcm(2 chunk, 128 N, chunk N), each graph
+    is cut into N shards, and each rank runs its rows' chunks through the
+    CNN."""
     if cfg.dp_devices > 1 or cfg.tp_devices > 1:
         # the reference's refusal (runner.py:565)
         raise NotImplementedError(
             "joint CNN+GCN mode does not compose with -dp_devices/-tp_devices; use "
             "-graph_devices for multi-device joint runs, or the staged "
             "pretrain->save_feats->finetune path")
-    if cfg.graph_devices > 1:
-        raise NotImplementedError(
-            "joint mode over -graph_devices > 1 (node-sharded) is not ported yet: ROADMAP A13")
     device = resolve_device(device)
+    n_shards = cfg.graph_devices
+    mesh = make_mesh(n_shards, axis="graph") if n_shards > 1 else None
+    main = mesh is None or mesh.rank == 0
+    verbose = verbose if main else _quiet
     if splits is None:
         splits = artifact.load_dataset(cfg.data_path)
     train_ds = splits["train"]
@@ -461,7 +558,10 @@ def run_joint(cfg: Config, splits: Optional[Dict[str, WindowDataset]] = None,
     n_targets = train_ds.n_targets
     comp_map = torch.as_tensor(complement_permutation(train_ds.src_vocab), device=device)
     chunk = cfg.joint_chunk
-    bucket = int(np.lcm(2 * chunk, 128))
+    bucket = int(np.lcm.reduce([2 * chunk, 128 * n_shards, chunk * n_shards]))
+    place = (lambda arr: arr) if mesh is None else node_sharding(mesh)
+    if mesh is not None:
+        verbose(f"joint: node-sharded over {n_shards} devices")
 
     data = {}
     for split, ds in splits.items():
@@ -487,7 +587,10 @@ def run_joint(cfg: Config, splits: Optional[Dict[str, WindowDataset]] = None,
             g = build_chrom_graph(
                 cfg.adj_type, n_valid=entry["n_valid"], n_pad=entry["tokens"].shape[0],
                 hic_edges=hic[split][chrom] if hic else None, device=device)
-            if use_bsr:
+            if mesh is not None:
+                g = shard_graph(g, n_shards, strategy=_graph_strategy(cfg, device),
+                                spmm_dtype=cfg.spmm_dtype, group=mesh.group("graph"))
+            elif use_bsr:
                 # no -spmm_dtype here: the reference attaches the operator
                 # without it (runner.py:643), so joint mode runs f32 tiles
                 g = attach_auto(g, strategy=cfg.spmm_form, device=device)
@@ -529,19 +632,23 @@ def run_joint(cfg: Config, splits: Optional[Dict[str, WindowDataset]] = None,
 
     os.makedirs(run_dir, exist_ok=True)
     tracker = BestTracker()
-    logger = EpochLogger(run_dir, append=start_epoch > 1)
+    logger = EpochLogger(run_dir, append=start_epoch > 1, writes=main)
+    # one seed on every graph rank, as run_finetune's
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 2)
 
     def run_split(split: str, train: bool):
         preds, targs, losses = [], [], []
         for chrom, entry in data[split].items():
             graph = graphs[split][chrom]
+            tokens, targets = place(entry["tokens"]), place(entry["targets"])
             if train:
-                loss = joint_train_step(wstate, cstate, entry["tokens"], comp_map, graph,
-                                        entry["targets"], generator, chunk, device=device)[2]
+                loss = joint_train_step(wstate, cstate, tokens, comp_map, graph, targets,
+                                        generator, chunk, device=device)[2]
             else:
-                loss, probs = joint_eval_step(wstate, cstate, entry["tokens"], comp_map, graph,
-                                              entry["targets"], chunk, device=device)
+                loss, probs = joint_eval_step(wstate, cstate, tokens, comp_map, graph, targets,
+                                              chunk, device=device)
+                if mesh is not None:
+                    probs = gather_rows(probs, mesh.group("graph"))
                 preds.append(probs[:entry["n_valid"]])
                 targs.append(entry["targets"][:entry["n_valid"]])
             losses.append(loss)
@@ -564,7 +671,8 @@ def run_joint(cfg: Config, splits: Optional[Dict[str, WindowDataset]] = None,
         logger.log("valid", epoch, valid_loss, valid_metrics)
         logger.log("test", epoch, test_loss, test_metrics)
         score = selection_score(valid_metrics)
-        if logger.maybe_snapshot(epoch, valid_loss, score, v_preds, v_targs, t_preds, t_targs):
+        if (logger.maybe_snapshot(epoch, valid_loss, score, v_preds, v_targs, t_preds, t_targs)
+                and main):
             ckpt.save_joint_checkpoint(run_dir, wstate, cstate, epoch)
         verbose(
             f"epoch {epoch}: joint test meanAUC={test_metrics['meanAUC']:.4f} "

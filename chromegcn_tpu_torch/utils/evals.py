@@ -151,13 +151,16 @@ class BestTracker:
 
 
 class EpochLogger:
-    """Per-epoch CSV logs + best prediction snapshots."""
+    """Per-epoch CSV logs + best prediction snapshots. With ``writes=False``
+    (a rank other than 0 of a multi-device run) it tracks the best epochs
+    alike and writes nothing."""
 
-    def __init__(self, run_dir: str, append: bool = False):
+    def __init__(self, run_dir: str, append: bool = False, writes: bool = True):
         self.run_dir = run_dir
+        self.writes = writes
         os.makedirs(run_dir, exist_ok=True)
         os.makedirs(os.path.join(run_dir, "epochs"), exist_ok=True)
-        if not append:  # resume passes append=True to keep prior epochs
+        if not append and writes:  # resume passes append=True to keep prior epochs
             for split in ("train", "valid", "test"):
                 open(os.path.join(run_dir, f"{split}.log"), "w").close()
         self.best_valid_loss = float("inf")
@@ -176,6 +179,8 @@ class EpochLogger:
             self.best_loss_epoch = int(best["loss_epoch"])
 
     def _persist_best(self) -> None:
+        if not self.writes:
+            return
         with open(os.path.join(self.run_dir, "best.json"), "w") as f:
             json.dump(
                 {
@@ -187,7 +192,7 @@ class EpochLogger:
             )
 
     def log(self, split: str, epoch: int, loss: float, m: Optional[Dict]) -> None:
-        if m is None:
+        if m is None or not self.writes:
             return
         with open(os.path.join(self.run_dir, f"{split}.log"), "a") as f:
             f.write(
@@ -199,6 +204,8 @@ class EpochLogger:
         training's train step): NaN placeholders keep the six columns
         ``epoch,loss,mAP,meanAUC,meanAUPR,meanFDR`` (reference:
         utils/evals.py:297-300), so every .log parses alike."""
+        if not self.writes:
+            return
         with open(os.path.join(self.run_dir, f"{split}.log"), "a") as f:
             f.write(f"{epoch},{loss},nan,nan,nan,nan\n")
 
@@ -215,7 +222,7 @@ class EpochLogger:
             self.best_valid_loss = valid_loss
             self.best_loss_epoch = epoch
             updated = True
-            np.savez_compressed(
+            self._snapshot(
                 os.path.join(ep, "best_loss.npz"),
                 valid_preds=valid_preds, valid_targets=valid_targs,
                 test_preds=test_preds, test_targets=test_targs,
@@ -224,7 +231,7 @@ class EpochLogger:
         if improved:
             self.best_valid_metric = valid_score
             updated = True
-            np.savez_compressed(
+            self._snapshot(
                 os.path.join(ep, "best_metrics.npz"),
                 valid_preds=valid_preds, valid_targets=valid_targs,
                 test_preds=test_preds, test_targets=test_targs,
@@ -232,3 +239,7 @@ class EpochLogger:
         if updated:
             self._persist_best()
         return improved
+
+    def _snapshot(self, path: str, **arrays) -> None:
+        if self.writes:
+            np.savez_compressed(path, **arrays)

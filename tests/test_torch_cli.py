@@ -44,6 +44,7 @@ from chromegcn_tpu_torch.utils.convert import (
     chromegcn_state_dict, chromernn_state_dict, window_state_dict,
 )
 from test_torch_rnn import one_thread
+import torch_parallel_workers as workers
 from test_torch_window import jax_no_dropout, no_dropout  # noqa: F401 (a fixture)
 
 CPU = "cpu"
@@ -274,7 +275,7 @@ UNPORTED = [
     (["-spmm_form", "hybrid"], "A9"),
 ]
 # ROADMAP items that have landed: their modes run through the port
-PORTED = {"A9", "A10", "A11", "A12"}
+PORTED = {"A9", "A10", "A11", "A12", "A13"}
 
 
 def _window_argv(root, *extra):
@@ -302,10 +303,31 @@ def test_unported_modes_name_their_roadmap_item(tmp_path, extra, item):
     every split's features. A11 has: -joint trains both stages and logs a
     loss-only train line. A12 has: -chrome_model rnn finetunes ChromeRNN.
     A9 has: -spmm_form hybrid attaches the hybrid operator and finetunes
-    (tests/test_torch_hybrid.py holds its epochs to JAX's)."""
+    (tests/test_torch_hybrid.py holds its epochs to JAX's). A13 has: each
+    of -graph_devices, -dp_devices and -tp_devices N runs when the process
+    is one of N ranks (spawned here over gloo, the group found through
+    torchrun's environment; rank 0 writes the logs), and raises the mesh's
+    error when it is not (tests/test_torch_parallel_cli.py holds the runs
+    to JAX's)."""
     if item not in PORTED:
         with pytest.raises(NotImplementedError, match=item):
             tmain.main(_argv(tmp_path, *extra), device=CPU)
+        return
+    if item == "A13":
+        n = int(extra[1])
+        if extra[0] == "-graph_devices":
+            cfg = _write_world(tmp_path)
+            argv = _argv(tmp_path, *extra, "-epochs", "1")
+        else:
+            cfg = _write_window_world(tmp_path)
+            argv = _window_argv(tmp_path, *extra, "-pretrain", "-epochs", "1",
+                                "-test_batch_size", "8")
+            cfg = dataclasses.replace(cfg, load_pretrained=False)
+        with pytest.raises(ValueError, match=f"needs {n} ranks"):
+            tmain.main(argv, device=CPU)
+        ranks = workers.spawn({n: [("cli", dict(argv=argv))]}, tmp_path / "ranks", env=True)
+        assert [r["cli"] for r in ranks[n]] == [n] * n
+        assert _log(cfg, "train").shape == (1, 6) and _log(cfg, "test").shape == (1, 6)
         return
     if item == "A9":
         _write_world(tmp_path)

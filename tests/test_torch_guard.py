@@ -1,6 +1,7 @@
 """Guards of the PyTorch/CUDA port: it imports nothing of JAX or of the JAX
-package, and its entry points default to the card instead of carrying on
-on the CPU."""
+package (its parallel paths and the parallel tests' spawned ranks neither),
+and its entry points default to the card instead of carrying on on the
+CPU."""
 
 import ast
 from pathlib import Path
@@ -24,7 +25,10 @@ from chromegcn_tpu_torch.train.runner import run_finetune, run_pretrain
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "chromegcn_tpu")
-PORT_FILES = sorted((ROOT / "chromegcn_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port, its on-card smoke test, and the module the parallel tests'
+# spawned ranks import afresh (tests/torch_parallel_workers.py)
+PORT_FILES = sorted((ROOT / "chromegcn_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_workers.py"]
 
 
 # the one exception: t-SNE needs scikit-learn, which the function imports

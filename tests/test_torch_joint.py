@@ -48,6 +48,7 @@ from chromegcn_tpu_torch.utils import evals as tevals
 from chromegcn_tpu_torch.utils.convert import chromegcn_state_dict, window_state_dict
 from test_torch_rnn import torch_one_thread  # noqa: F401 (a fixture)
 from test_torch_window import NTARGETS, SEQ, jax_window_state, port_model
+import torch_parallel_workers as workers
 
 # torch on one thread: the test workers share the cores, and torch's CPU
 # convolutions and LSTMs slow down ~20x when every worker runs a full pool
@@ -193,7 +194,7 @@ def test_chunked_matches_unchunked(chrome):
     with pytest.raises(ValueError, match="multiple of chunk_size"):
         tjoint._cnn_features(wmodel, torch.as_tensor(tokens[:12]), torch.as_tensor(_comp()),
                              CHUNK, tg)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="SparseGraph or a ShardedGraph"):
         tjoint._cnn_features(wmodel, torch.as_tensor(tokens), torch.as_tensor(_comp()),
                              CHUNK, object())
 
@@ -334,17 +335,31 @@ def test_warm_start_from_stage1(tmp_path, capsys):
 @pytest.mark.parametrize("flag,match", [
     ("dp_devices", "does not compose with -dp_devices"),
     ("tp_devices", "does not compose with -dp_devices"),
-    ("graph_devices", "A13"),
+    ("graph_devices", "needs 2 ranks"),
 ])
 def test_parallel_flags_refused(tmp_path, flag, match):
     """run_joint refuses data and tensor parallelism as the reference does
-    (runner.py:565), and the node-sharded path names its ROADMAP item; the
-    CLI stops all three at check_ported, naming A13."""
-    cfg = _cfg(tmp_path, **{flag: 2})
-    with pytest.raises(NotImplementedError, match=match):
+    (runner.py:565), through the CLI too. -graph_devices 2 runs when the
+    process is one of 2 ranks (spawned here over gloo: rank 0 writes the
+    logs and both stages' checkpoint), and raises the mesh's error when it
+    is not."""
+    cfg = _cfg(tmp_path, epochs=1, **{flag: 2})
+    error = ValueError if flag == "graph_devices" else NotImplementedError
+    with pytest.raises(error, match=match):
         trunner.run_joint(cfg, device=CPU, verbose=_quiet)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tmain.main(["-joint", f"-{flag}", "2"], device=CPU)
+    argv = ["-joint", f"-{flag}", "2", "-dataroot", cfg.dataroot, "-results_dir",
+            cfg.results_dir, "-cell_type", "SYN", "-d_model", str(D), "-optim", "adam",
+            "-lr", "1e-3", "-gcn_dropout", "0", "-adj_type", "constant", "-joint_chunk",
+            str(CHUNK), "-window_model", "deepsea", "-seq_length", "200", "-epochs", "1"]
+    with pytest.raises(error, match=match):
+        tmain.main(argv, device=CPU)
+    if flag != "graph_devices":
+        return
+    ranks = workers.spawn({2: [("cli", dict(argv=argv))]}, tmp_path / "ranks", env=True)
+    assert [r["cli"] for r in ranks[2]] == [2, 2]
+    run_dir = tmain.config_from_args(tmain.build_parser().parse_args(argv)).run_dir + ".joint"
+    assert _log(run_dir, "train").shape == (1, 6) and _log(run_dir, "test").shape == (1, 6)
+    assert set(tckpt.restore_checkpoint(run_dir)) == {"window", "chrome", "epoch"}
 
 
 def test_joint_steps_default_to_the_card(monkeypatch):
