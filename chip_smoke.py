@@ -98,13 +98,32 @@ per phase:
    the train and eval steps on the host clock, windows/s, peak memory and
    launches per step (8 B1; 4 B2 + 4 B3; eval 4 B1 or 4 B2), and one step
    in the fast mode as a record;
+16. the host ingest (``pipeline/``, ``native_bridge.py``) at full chr1:
+   make_raw_world over hg19's chr1 (249,250,621 bp, 12 assays), its host
+   seconds, file sizes and RAWobserved line count; the pipeline CLI
+   (``python -m chromegcn_tpu_torch.pipeline --hicsize 500000 --hicnorm
+   SQRTVC``) with build_dataset's and build_hic_graphs' host seconds apart and
+   hic_topk's lines per second, its files held to the world's ground truth
+   (kept windows, positive labels; symmetric edges among kept windows, equal
+   to hic_topk's contacts); hic_topk_plain over the whole file and
+   intersect_fraction_plain over each assay's first 25,000 windows against
+   the native library; then on the card the ingested graph's flat operator,
+   B1's A x and A^T g against the plain version, the full-width unfused train
+   and eval steps with random features (8 and 4 B1 launches, host clock,
+   peak memory) and B1's time against its bound beside the graph's longest
+   row; last the chain raw files -> pipeline CLI -> Expecto -pretrain
+   -epochs 1 -> -save_feats -> -load_pretrained -epochs 1 (unfused, its B1
+   launches counted) on four ~4 Mbp chromosomes with 12 labels;
 17. the full chr1-scale world (chr1 at 1 kb windows: make_hic_edges(249,088,
    500,000) as bench_hybrid.py builds it, 927,632 edges, N_PAD 249,856) at
    full width: the host build seconds of the flat, panelled (the reference's
    panel_bounds) and hybrid operator forms; B1 over the flat form, each
    panel and both of the hybrid's parts (the stragglers' edge form against
    index_select + index_add_) against their plain versions; the panelled
-   and hybrid products, A x and A^T g, against the flat one; the unfused
+   and hybrid products, A x and A^T g, against the flat one; B2 and B3 over
+   the flat form against their plain versions, and timed alone (CUDA
+   events, and device time where a trace completes) against their bounds
+   and library compositions; the unfused
    train step on the hybrid against the one on the flat form from the same
    weights (loss rel 1e-5, grads 1e-4 of scale); the unfused flat, unfused
    hybrid and fused flat train and eval steps on the host clock, with peak
@@ -136,7 +155,7 @@ per phase:
 20. a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-Phases 17, 18 and 19 run after 13 and before 14. Every device time comes from
+Phases 17, 18 and 19 run after 13 and before 14; phase 16 after 15. Every device time comes from
 a complete torch.profiler trace (``traced``): in a long run on the H100 the
 profiler has returned traces that lost some or all of the kernels that
 ran, and such a trace is taken again. Any failed phase ends the run
@@ -151,6 +170,7 @@ of the step.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -216,6 +236,16 @@ FULL_EDGES = dict(seed=107, hubness=0.6, compartment_frac=0.15)
 # what the reference's TPU run of that world recorded (HYBRID_r05.json): a
 # record beside this run's counts, not a check (the generators may differ)
 FULL_TPU_RECORD = "927,632 edges / 176,760 straggler edges / 1,946 dense tiles"
+# the ingest (phase 16): hg19's chr1 (249,250,621 bp) written by make_raw_world
+# (its 12 default assays, pairs_per_node 6) from this seed, through the
+# pipeline at the reference's -hicsize 500000 and SQRTVC norm; the plain
+# intersection is checked on each assay's first INGEST_INTERSECT_WINDOWS
+# windows. The CLI chain's world: four ~4 Mbp chromosomes (chr1 test, chr3
+# valid, chr2 and chr4 train), 12 labels (make_raw_world plants one motif per
+# assay in a window, so it cannot give 919)
+INGEST_SEED, INGEST_HICSIZE, INGEST_INTERSECT_WINDOWS = 16, 500_000, 25_000
+INGEST_CHAIN_SIZES = {"chr1": 4_000_000, "chr2": 4_000_000, "chr3": 4_000_000,
+                      "chr4": 4_000_000}
 # the analysis phase (18): its float64 check at this N, and the SNPs it scores
 ANALYSIS_N, SNPS = 4096, 64
 # profile groups of the ChromeRNN step, by words in the kernel's name
@@ -649,7 +679,6 @@ def cli_config(argv):
 
 def run_cli(cli_main, argv):
     """``cli_main(argv)`` on the card; returns (its printed lines, seconds)."""
-    import contextlib
     import io
 
     buf = io.StringIO()
@@ -659,6 +688,46 @@ def run_cli(cli_main, argv):
         cli_main(argv)
     torch.cuda.synchronize()
     return buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def timed(module, names, seconds):
+    """For the block, wrap each function ``names`` of ``module`` so that each
+    call adds its host seconds to ``seconds[name]``."""
+    saved = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return call
+
+    for name, fn in saved.items():
+        setattr(module, name, wrap(name, fn))
+    try:
+        yield seconds
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def same_topk(ours, plain, tie_at_k):
+    """Two top-k contact lists (bin1, bin2, value) hold the same contacts:
+    equal values as multisets, and the same (bin1, bin2, value) triples, or,
+    where ``tie_at_k`` (contacts outside the k share the k-th value), the
+    same triples above the k-th value."""
+    if not np.array_equal(np.sort(ours[2]), np.sort(plain[2])):
+        return False
+    floor = ours[2].min() if len(ours[2]) and tie_at_k else -np.inf
+
+    def triples(res):
+        keep = res[2] > floor if tie_at_k else np.ones(len(res[2]), bool)
+        return sorted(zip(res[0][keep].tolist(), res[1][keep].tolist(), res[2][keep].tolist()))
+
+    return triples(ours) == triples(plain)
 
 
 def read_logs(run_dir):
@@ -967,6 +1036,9 @@ def fullscale_phase(args, smi, bench_graph, bench_device_ms):
     from chromegcn_tpu_torch.data.synthetic import make_hic_edges
     from chromegcn_tpu_torch.ops import _build
     from chromegcn_tpu_torch.ops import spmm_hybrid as hy
+    from chromegcn_tpu_torch.ops.gcn_fused import (
+        fused_bwd, fused_bwd_plain, fused_fwd, fused_fwd_plain,
+    )
     from chromegcn_tpu_torch.ops.sparse import build_chrom_graph
     from chromegcn_tpu_torch.ops.spmm import spmm_operator
     from chromegcn_tpu_torch.ops.spmm_bsr import (
@@ -1207,7 +1279,58 @@ def fullscale_phase(args, smi, bench_graph, bench_device_ms):
         f"{tpu_model['hybrid_ns'] / 1e6:.4f} ms (a TPU's, a record)")
     require(all(np.isfinite([c_launch, c_local, c_scat, c_row, c_add])),
             "the cost fit is not finite")
+
+    # B2 and B3 alone over the flat form, against their plain versions, then
+    # timed as B1 is (CUDA events), with device times where a trace completes
+    w, bias = torch.randn(D, D, device=cuda, generator=gen) / D ** 0.5, 0.1 * torch.randn(
+        D, device=cuda, generator=gen)
+    ds, dx_dir = torch.randn(FULL_PAD, D, device=cuda), torch.randn(FULL_PAD, D, device=cuda)
+    ref = fused_fwd_plain(flat.fwd, x, w, bias)
+    poison_allocator((FULL_PAD, D))
+    errs_fused = {"gcn_fused_fwd": compare(f"B2 z at full scale d={D}",
+                                           fused_fwd(flat.fwd, x, w, bias), ref)}
+    h_ref, dx_ref = fused_bwd_plain(flat.bwd, ds, dx_dir, w)
+    poison_allocator((2 * FULL_PAD, D))
+    h, dx = fused_bwd(flat.bwd, ds, dx_dir, w)
+    errs_fused["gcn_fused_bwd"] = max(
+        compare(f"B3 h at full scale d={D}", h, h_ref),
+        compare(f"B3 dx at full scale d={D} (atol of scale)", dx, dx_ref, scaled=True))
+    del ref, h_ref, dx_ref, h, dx
+    adj_t_csr = csr_of(graph, transpose=True)
+    fused_fns = {
+        "B2": lambda: fused_fwd(flat.fwd, x, w, bias),
+        "B2 plain": lambda: fused_fwd_plain(flat.fwd, x, w, bias),
+        "B2 library": lambda: torch.tanh(torch.sparse.mm(adj_csr, x) @ w + bias),
+        "B3": lambda: fused_bwd(flat.bwd, ds, dx_dir, w),
+        "B3 plain": lambda: fused_bwd_plain(flat.bwd, ds, dx_dir, w),
+        "B3 library": lambda: torch.addmm(dx_dir, torch.sparse.mm(adj_t_csr, ds), w.T),
+    }
+    t = cuda_ms(fused_fns)
+    fused_rows = {}
+    for kernel, key, m, bwd in (("gcn_fused_fwd", "B2", flat.fwd, False),
+                                ("gcn_fused_bwd", "B3", flat.bwd, True)):
+        fb_ms, fb_by, fb_bytes, _ = fused_bound(m, D, bwd)
+        for _ in range(3):
+            fused_fns[key]()
+        torch.cuda.synchronize()
+        rows = traced(fused_fns[key], 20, f"{key} at full scale")
+        dev = None if rows is None else sum(us for _, us, _ in rows) / 20 / 1e3
+        ms = statistics.median(t[key])
+        fused_rows[kernel] = {"event_ms_fullscale": ms, "device_ms_fullscale": dev,
+                              "plain_ms_fullscale": statistics.median(t[f"{key} plain"]),
+                              "library_ms_fullscale": statistics.median(t[f"{key} library"]),
+                              "bound_ms_fullscale": fb_ms,
+                              "max_abs_err_fullscale": errs_fused[kernel]}
+        log(f"  {key} alone at full scale, d {D}, ms per call (CUDA events, median (min-max) of "
+            f"5 loops of 20 in turns): kernel {spread(t[key])}; plain {spread(t[f'{key} plain'])}; "
+            f"library composition {spread(t[f'{key} library'])}; device "
+            f"{'not measured (no complete trace)' if dev is None else f'{dev:.4f}'}; bound "
+            f"{fb_ms:.4f} ms by {fb_by} ({fb_bytes / 1e6:.1f} MB): kernel at "
+            f"{100 * fb_ms / ms:.1f}% (events)")
+        require(fb_ms / ms <= 1.0, f"{key} above 100% of its bound")
+    del ds, dx_dir, adj_t_csr
     return {
+        "fused_fullscale": fused_rows,
         "event_ms_fullscale": med["flat"],
         "bound_ms_fullscale": b_ms,
         "launches_hybrid_train_step": counts["hybrid", "train"]["bsr_spmm"],
@@ -1537,6 +1660,292 @@ def parallel_phase(args, smi, graph, flat):
             "launches_sharded_train_step": launches["S=4"]["bsr_spmm"],
             "launches_nccl_train_step": launches["nccl"]["bsr_spmm"],
             "event_ms_sharded": event_ms}
+
+
+def ingest_phase(args, smi, here):
+    """Phase 16: the host ingest at full chr1, then its graph on the card and
+    the raw-files-to-finetune chain through the CLIs (see the module doc).
+    Returns B1's numbers for the kernels line."""
+    from chromegcn_tpu_torch import native_bridge
+    from chromegcn_tpu_torch.data import artifact
+    from chromegcn_tpu_torch.data.loader import load_chrom_features
+    from chromegcn_tpu_torch.data.synthetic_raw import make_raw_world
+    from chromegcn_tpu_torch.main import main as cli_main
+    from chromegcn_tpu_torch.ops import _build
+    from chromegcn_tpu_torch.ops.sparse import build_chrom_graph
+    from chromegcn_tpu_torch.ops.spmm_bsr import attach_bsr, bsr_matmul, bsr_matmul_plain
+    from chromegcn_tpu_torch.pipeline import build as pipeline_build
+    from chromegcn_tpu_torch.pipeline.__main__ import main as pipeline_main
+    from chromegcn_tpu_torch.pipeline.genome import HG19_SIZES, tile_windows
+    from chromegcn_tpu_torch.pipeline.hic import read_norm_vector, split_graph_paths
+    from chromegcn_tpu_torch.pipeline.peaks import collect_peak_files, read_narrowpeak
+    from chromegcn_tpu_torch.train.finetune import (
+        bucket_nodes, chrome_eval_step, chrome_train_step,
+    )
+    from chromegcn_tpu_torch.train.runner import build_split_graphs
+
+    cuda = torch.device("cuda")
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="ingest_", dir=os.path.join(here, "build"))
+    try:
+        # (a) the raw files of hg19's chr1
+        raw = os.path.join(work, "raw")
+        size = HG19_SIZES["chr1"]
+        t0 = time.perf_counter()
+        truth = make_raw_world(raw, {"chr1": size}, seed=INGEST_SEED, verbose=lambda *_: None)
+        t_gen = time.perf_counter() - t0
+        chr1 = truth["chroms"]["chr1"]
+        raw_path = os.path.join(raw, "hic", "chr1.RAWobserved")
+        norm_path = os.path.join(raw, "hic", "chr1.SQRTVCnorm")
+        with open(raw_path, "rb") as f:
+            n_lines = sum(chunk.count(b"\n") for chunk in iter(lambda: f.read(1 << 24), b""))
+        mb = {name: os.path.getsize(os.path.join(raw, rel)) / 1e6 for name, rel in (
+            ("genome.fa", "genome.fa"), ("RAWobserved", "hic/chr1.RAWobserved"),
+            ("SQRTVCnorm", "hic/chr1.SQRTVCnorm"))}
+        mb["peaks"] = sum(os.path.getsize(p) for p in collect_peak_files(
+            os.path.join(raw, "peaks"))) / 1e6
+        log(f"[16 ingest] {smi}; make_raw_world over hg19 chr1 ({size} bp, "
+            f"{truth['n_assays']} assays, seed {INGEST_SEED}): {t_gen:.1f} s host; "
+            f"{chr1['n_windows']} windows, {chr1['kept_windows']} with a peak, "
+            f"{chr1['positives']} positive labels; files "
+            + ", ".join(f"{k} {v:.1f} MB" for k, v in mb.items())
+            + f"; RAWobserved {n_lines} lines ({chr1['signal_pairs']} signal + "
+            f"{chr1['noise_pairs']} noise contacts)")
+        require(n_lines == chr1["signal_pairs"] + chr1["noise_pairs"],
+                "the RAWobserved file's line count differs from the world's contacts")
+
+        # (b) the pipeline CLI, its two stages timed apart
+        out = os.path.join(work, "SYNRAW", "1000")
+        argv = ["--fasta", os.path.join(raw, "genome.fa"), "--peaks", os.path.join(raw, "peaks"),
+                "--hic", os.path.join(raw, "hic"), "--out", out,
+                "--hicsize", str(INGEST_HICSIZE), "--hicnorm", "SQRTVC"]
+        secs = {}
+        with timed(pipeline_build, ("build_dataset", "build_hic_graphs"), secs), \
+                timed(native_bridge, ("hic_topk",), secs):
+            printed, t_cli = run_cli(pipeline_main, argv)
+        log(f"  python -m chromegcn_tpu_torch.pipeline --hicsize {INGEST_HICSIZE} --hicnorm "
+            f"SQRTVC: {t_cli:.1f} s host; build_dataset {secs['build_dataset']:.1f} s, "
+            f"build_hic_graphs {secs['build_hic_graphs']:.1f} s (hic_topk "
+            f"{secs['hic_topk']:.2f} s, {n_lines / secs['hic_topk'] / 1e6:.2f} M lines/s)")
+        for line in printed:
+            log(f"    {line}")
+        data = np.load(os.path.join(out, "dataset.npz"), allow_pickle=False)
+        require(sorted(data.files) == ["meta", "test/chroms", "test/starts", "test/targets",
+                                       "test/tokens"], f"dataset.npz holds {data.files}")
+        starts, targets = data["test/starts"], data["test/targets"]
+        tokens = data["test/tokens"]
+        kept = len(starts)
+        log(f"  dataset.npz: {kept} windows x {tokens.shape[1]} tokens, {targets.shape[1]} "
+            f"labels, {int(targets.sum())} positive; ground truth {chr1['kept_windows']} windows, "
+            f"{chr1['positives']} positive")
+        require(kept == chr1["kept_windows"], "the ingest kept other windows than the truth's")
+        require(int(targets.sum()) == chr1["positives"], "the ingest's labels differ in count")
+        require(tokens.shape == (kept, 2000) and int(tokens.min()) >= 0
+                and int(tokens.max()) <= 4, "tokens of a wrong shape or out of the vocabulary")
+        require(bool((np.diff(starts) > 0).all()) and bool((starts % 1000 == 0).all()),
+                "window starts out of order or off the 1 kb grid")
+        del tokens, data
+        graph_path = split_graph_paths(os.path.join(out, "hic"), "test", str(INGEST_HICSIZE),
+                                       "SQRTVC")
+        s, r, v = artifact.load_graph_edges(graph_path)["chr1"]
+        pairs = set(zip(s.tolist(), r.tolist()))
+        require(len(s) > 0 and all((b, a) in pairs for a, b in pairs),
+                "the ingested graph is not symmetric")
+        require(int(max(s.max(), r.max())) < kept and int(min(s.min(), r.min())) >= 0
+                and not bool((s == r).any()), "an edge leaves the kept windows or is a loop")
+
+        # the plain versions against the library
+        norm = read_norm_vector(norm_path)
+        k = INGEST_HICSIZE // 2
+        t0 = time.perf_counter()
+        nat = native_bridge.hic_topk(raw_path, starts, k, norm=norm)
+        t_nat = time.perf_counter() - t0
+        nxt = native_bridge.hic_topk(raw_path, starts, k + 1, norm=norm)
+        tie = len(nxt[2]) > k and nxt[2][k] == nat[2][-1]
+        t0 = time.perf_counter()
+        plain = native_bridge.hic_topk_plain(raw_path, starts, k, norm=norm)
+        t_plain = time.perf_counter() - t0
+        n = len(nat[0])
+        require(np.array_equal(np.searchsorted(starts, nat[0]), s[:n])
+                and np.array_equal(np.searchsorted(starts, nat[1]), r[:n]),
+                "the graph file's edges are not hic_topk's contacts")
+        ok = same_topk(nat, plain, tie)
+        log(f"  hic_topk over the whole file, k {k}: {n} contacts kept, the library "
+            f"{t_nat:.2f} s ({n_lines / t_nat / 1e6:.2f} M lines/s), plain (numpy) {t_plain:.2f} s; "
+            f"a tie at the k-th value: {tie}; plain = library as sets with equal values: "
+            f"{'ok' if ok else 'MISMATCH'}")
+        require(ok, "hic_topk_plain disagrees with the library")
+        del nat, nxt, plain
+        ws, we = tile_windows(size)
+        ws, we = ws[:INGEST_INTERSECT_WINDOWS], we[:INGEST_INTERSECT_WINDOWS]
+        n_pairs, t_nat, t_plain = 0, 0.0, 0.0
+        for path in collect_peak_files(os.path.join(raw, "peaks")):
+            ps = read_narrowpeak(path)
+            sel = ps["chrom"] == "chr1"
+            t0 = time.perf_counter()
+            got = native_bridge.intersect_fraction(ws, we, ps["start"][sel], ps["end"][sel], 0.1)
+            t1 = time.perf_counter()
+            ref = native_bridge.intersect_fraction_plain(ws, we, ps["start"][sel],
+                                                         ps["end"][sel], 0.1)
+            t_nat, t_plain = t_nat + t1 - t0, t_plain + time.perf_counter() - t1
+            require(sorted(zip(got[0].tolist(), got[1].tolist()))
+                    == sorted(zip(ref[0].tolist(), ref[1].tolist())),
+                    f"intersect_fraction_plain disagrees with the library on {path}")
+            n_pairs += len(got[0])
+        log(f"  intersect_fraction, the first {INGEST_INTERSECT_WINDOWS} windows x each of "
+            f"{truth['n_assays']} assays: {n_pairs} pairs, the library {t_nat:.3f} s, plain "
+            f"{t_plain:.2f} s; plain = library (sorted pairs): ok")
+
+        # (c) the ingested graph on the card: B1, and the full-width step
+        n_pad = bucket_nodes(kept)
+        t0 = time.perf_counter()
+        graph = build_chrom_graph("hic", n_valid=kept, n_pad=n_pad, hic_edges=(s, r, v),
+                                  device=cuda)
+        g = attach_bsr(graph, device=cuda)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        op = g.bsr
+        rows = {k_: op_.row_ptr.diff() for k_, op_ in (("fwd", op.fwd), ("bwd", op.bwd))}
+        longest = {k_: int(v_.max()) for k_, v_ in rows.items()}
+        log(f"  on the card: build_chrom_graph + attach_bsr {t_build:.1f} s host; N_PAD {n_pad}, "
+            f"{graph.n_edges} edges, {op.fwd.nnz} nonzeros a direction; longest row "
+            f"{longest['fwd']} (fwd) / {longest['bwd']} (bwd), mean "
+            f"{op.fwd.nnz / kept:.2f} a kept window, {int((rows['fwd'][:kept] == 0).sum())} "
+            f"kept windows without an edge")
+        for direction in ("fwd", "bwd"):
+            check_csr_matches_blocks(f"ingested chr1 {direction}", getattr(op, direction))
+        gen = torch.Generator(device=cuda).manual_seed(INGEST_SEED)
+        x = torch.randn(n_pad, D, device=cuda, generator=gen)
+        errs = {}
+        for direction, what in (("fwd", "A x"), ("bwd", "A^T g")):
+            m = getattr(op, direction)
+            ref = bsr_matmul_plain(m, x)
+            poison_allocator((n_pad, D))
+            errs[direction] = compare(f"B1 {what} over the ingested chr1 graph d={D}",
+                                      bsr_matmul(m, x), ref)
+        del ref
+        rng = np.random.default_rng(INGEST_SEED)
+        x_f = torch.from_numpy(rng.normal(size=(n_pad, D)).astype(np.float32)).to(cuda)
+        x_r = torch.from_numpy(rng.normal(size=(n_pad, D)).astype(np.float32)).to(cuda)
+        tgt = torch.from_numpy((rng.random((n_pad, NCLASS)) < 0.1).astype(np.float32)).to(cuda)
+        state = new_state(0.2, "auto")
+        gen_step = torch.Generator(device=cuda).manual_seed(0)
+        steps = {"train": lambda: chrome_train_step(state, x_f, x_r, g, tgt, gen_step),
+                 "eval": lambda: chrome_eval_step(state, x_f, x_r, g, tgt)}
+        counts, peaks = {}, {}
+        for kind, step in steps.items():
+            step()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _build.LAUNCHES.clear()
+            res = step()
+            torch.cuda.synchronize()
+            counts[kind] = dict(_build.LAUNCHES)
+            peaks[kind] = (torch.cuda.max_memory_allocated() - held) / 2**30
+            require(all(bool(torch.isfinite(t).all()) for t in res[-2:]),
+                    f"ingested chr1 {kind} step: non-finite loss or probs")
+            del res
+        t_steps = host_ms(steps)
+        edges_per_step = graph.n_edges * LAYERS * 2 * 2
+        log(f"  full-width GCN (d {D}, {NCLASS} classes, {LAYERS} layers, 2 strands, SGD lr "
+            f"{LR}, dropout 0.2, random features from seed {INGEST_SEED}): host ms per step, "
+            f"median (min-max) of 5 loops of 5 in turns: train {spread(t_steps['train'])} = "
+            f"{edges_per_step / statistics.median(t_steps['train']) / 1e3:.1f} M edges/s, eval "
+            f"{spread(t_steps['eval'])}; peak device memory above what the process held "
+            f"{peaks['train']:.2f} GiB (train), {peaks['eval']:.2f} GiB (eval); launches "
+            f"{counts['train']} (train), {counts['eval']} (eval)")
+        require(counts == {"train": {"bsr_spmm": 8}, "eval": {"bsr_spmm": 4}},
+                "expected 8 B1 launches per train step and 4 per eval step")
+        del state
+        adj_csr = csr_of(graph)
+        t = cuda_ms({"fwd": lambda: bsr_matmul(op.fwd, x), "bwd": lambda: bsr_matmul(op.bwd, x),
+                     "plain": lambda: bsr_matmul_plain(op.fwd, x),
+                     "library": lambda: torch.sparse.mm(adj_csr, x)})
+        b_ms, b_by, b_bytes, _ = bound(op.fwd, D)
+        ev = statistics.median(t["fwd"])
+        log(f"  B1 ms per product over the ingested graph, d {D} (CUDA events, median (min-max) "
+            f"of 5 loops of 20 in turns): fwd {spread(t['fwd'])}, bwd {spread(t['bwd'])}, "
+            f"plain {spread(t['plain'])}, torch.sparse.mm CSR {spread(t['library'])}; bound "
+            f"{b_ms:.4f} ms by {b_by} ({b_bytes / 1e6:.1f} MB): B1 at {100 * b_ms / ev:.1f}%, "
+            f"{1e3 * ev / longest['fwd']:.3f} us per entry of the longest row")
+        require(b_ms / ev <= 1.0, "B1 above 100% of its bound")
+        del x, x_f, x_r, tgt, adj_csr, g, graph, op
+        torch.cuda.empty_cache()
+
+        # (d) raw files -> pipeline CLI -> pretrain -> save_feats -> finetune
+        chain_raw = os.path.join(work, "chain_raw")
+        chain_data = os.path.join(work, "chain")
+        t0 = time.perf_counter()
+        chain_truth = make_raw_world(chain_raw, INGEST_CHAIN_SIZES, seed=INGEST_SEED + 1,
+                                     verbose=lambda *_: None)
+        _, t_pipe = run_cli(pipeline_main, [
+            "--fasta", os.path.join(chain_raw, "genome.fa"),
+            "--peaks", os.path.join(chain_raw, "peaks"), "--hic", os.path.join(chain_raw, "hic"),
+            "--out", os.path.join(chain_data, "SYNRAW", "1000"),
+            "--hicsize", str(INGEST_HICSIZE), "--hicnorm", "SQRTVC"])
+        log(f"  the chain: make_raw_world {INGEST_CHAIN_SIZES} bp (seed {INGEST_SEED + 1}) "
+            f"{time.perf_counter() - t0 - t_pipe:.1f} s, the pipeline CLI {t_pipe:.1f} s; "
+            + ", ".join(f"{c} {v['kept_windows']} windows" for c, v in
+                        chain_truth["chroms"].items())
+            + f"; {chain_truth['n_assays']} labels (cut from {NCLASS}: make_raw_world plants "
+            "one motif per assay)")
+        base = ["-dataroot", chain_data, "-results_dir", os.path.join(work, "results"),
+                "-cell_type", "SYNRAW", "-seq_length", str(SEQ_LEN), "-batch_size",
+                str(WINDOW_BATCH), "-adj_type", "hic", "-hicsize", str(INGEST_HICSIZE),
+                "-hicnorm", "SQRTVC", "-window_model", "expecto", "-d_model", str(D)]
+        chain_counts = {}
+        for mode, extra in (("pretrain", ["-pretrain", "-epochs", "1"]),
+                            ("save_feats", ["-save_feats"]),
+                            ("finetune", ["-load_pretrained", "-epochs", "1"])):
+            _build.LAUNCHES.clear()
+            out_lines, secs_mode = run_cli(cli_main, base + extra)
+            chain_counts[mode] = dict(_build.LAUNCHES)
+            cfg = cli_config(base + extra)
+            if mode == "save_feats":
+                for split, chroms in (("train", ["chr2", "chr4"]), ("valid", ["chr3"]),
+                                      ("test", ["chr1"])):
+                    feats = load_chrom_features(cfg.feature_path(split))
+                    require(sorted(feats) == chroms, f"{split}: features of {sorted(feats)}")
+                    for chrom, cf in feats.items():
+                        n_c = chain_truth["chroms"][chrom]["kept_windows"]
+                        require(cf.forward.shape == cf.backward.shape == (n_c, D)
+                                and cf.target.shape == (n_c, chain_truth["n_assays"])
+                                and np.isfinite(cf.forward).all()
+                                and np.isfinite(cf.backward).all(),
+                                f"{split} {chrom}: features of a wrong shape or non-finite")
+                log(f"  expecto {' '.join(extra)}: {secs_mode:.1f} s; launches "
+                    f"{chain_counts[mode]}; every split's features ({D} columns a strand)")
+                continue
+            logs = read_logs(cfg.stage1_run_dir if mode == "pretrain" else cfg.run_dir)
+            log(f"  expecto {' '.join(extra)}: {secs_mode:.1f} s; launches {chain_counts[mode]}; "
+                + "; ".join(f"{sp} loss {logs[sp][0][1]:.6f} meanAUC {logs[sp][0][3]:.4f}"
+                            for sp in ("train", "valid", "test")))
+            require(all(len(rows_) == 1 and np.isfinite(rows_[0][1]) for rows_ in logs.values()),
+                    f"{mode}: a wrong epoch count or a non-finite loss")
+            if mode == "finetune":
+                require(any("warm-started GCN head from CNN checkpoint" in l for l in out_lines),
+                        "the chain's finetune did not log its warm start")
+        per_product = {}
+        for split in ("train", "valid", "test"):
+            graphs = build_split_graphs(cfg, load_chrom_features(cfg.feature_path(split)), split,
+                                        device=cuda, verbose=lambda *_: None)
+            per_product[split] = [launches_per_product(gr.bsr) for gr in graphs.values()]
+        want_b1 = 8 * sum(per_product["train"]) + 4 * sum(per_product["valid"]
+                                                          + per_product["test"])
+        log(f"  the finetune epoch's B1 launches {chain_counts['finetune']} (B1 launches per "
+            f"product, by chromosome: {per_product})")
+        require(chain_counts["finetune"] == {"bsr_spmm": want_b1},
+                f"expected {want_b1} B1 launches and no B2 or B3 in the chain's finetune")
+        require(not chain_counts["pretrain"] and not chain_counts["save_feats"],
+                "the window stage launched a GCN kernel")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  done in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_ingest_train_step": counts["train"]["bsr_spmm"],
+            "launches_ingest_cli_epoch": chain_counts["finetune"]["bsr_spmm"],
+            "event_ms_ingest": ev, "bound_ms_ingest": b_ms,
+            "max_abs_err_ingest": max(errs.values())}
 
 
 def main():
@@ -2386,6 +2795,9 @@ def main():
     rnn_phase(args, smi, graph, x_f, x_r, targets)
     joint_phase(args, smi, comp[cuda])
 
+    # ---- 16. the host ingest at full chr1, then on to the card ----
+    ingest = ingest_phase(args, smi, here)
+
     # ---- 20. result ----
     kernels = [{
         "name": "bsr_spmm",
@@ -2401,8 +2813,15 @@ def main():
         "launches_sharded_train_step": sharded["launches_sharded_train_step"],
         "launches_nccl_train_step": sharded["launches_nccl_train_step"],
         "event_ms_sharded_product": sharded["event_ms_sharded"],
+        # phase 16: the train step and the CLI chain's finetune epoch over
+        # graphs the port's ingest built
+        "launches_ingest_train_step": ingest["launches_ingest_train_step"],
+        "launches_ingest_cli_epoch": ingest["launches_ingest_cli_epoch"],
+        "event_ms_ingest": ingest["event_ms_ingest"],
+        "bound_ms_ingest": ingest["bound_ms_ingest"],
         "max_abs_err": max([v for k, v in errs.items() if k != "library"]
-                           + [full["max_abs_err_fullscale"], sharded["max_abs_err_sharded"]]),
+                           + [full["max_abs_err_fullscale"], sharded["max_abs_err_sharded"],
+                              ingest["max_abs_err_ingest"]]),
         "ms": t_fwd,
         "event_ms_fullscale": full["event_ms_fullscale"],
         "bound_ms_fullscale": full["bound_ms_fullscale"],
@@ -2418,13 +2837,17 @@ def main():
         "replaces": replaces,
         # the CLI's run (phase 9), the slice's main path
         "launches": cli_counts[kernel],
-        "max_abs_err": max(errs_fused[kernel]),
+        "max_abs_err": max(errs_fused[kernel] + [full["fused_fullscale"][kernel]
+                                                 ["max_abs_err_fullscale"]]),
         "ms": fused_rows[kernel][0],
         "event_ms": fused_rows[kernel][5],
         "plain_ms": fused_rows[kernel][1],
         "bound_ms": fused_rows[kernel][3],
         "bound_by": fused_rows[kernel][4],
         "library_ms": fused_rows[kernel][2],
+        # phase 17: alone over the full chr1-scale world's flat form
+        **{k: v for k, v in full["fused_fullscale"][kernel].items()
+           if k != "max_abs_err_fullscale"},
     } for kernel, source, replaces in (
         ("gcn_fused_fwd", "chromegcn_tpu_torch/csrc/gcn_fused.cu",
          "chromegcn_tpu/ops/gcn_fused.py:85"),

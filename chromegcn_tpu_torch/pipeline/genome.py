@@ -1,14 +1,50 @@
-"""FASTA access (port of chromegcn_tpu/pipeline/genome.py: ``Fasta`` and
-``write_fasta``; a copy, since importing the JAX package imports jax).
+"""Genome primitives: chromosome sizes, FASTA access, window tiling (port of
+chromegcn_tpu/pipeline/genome.py; a copy, since importing the JAX package
+imports jax).
 
-``Fasta`` replaces bedtools getfasta for the variant pipeline
-(pipeline/variants.py): a per-contig offset index built on open, random
-access by seek.
+Replaces reference data pipeline step 1 (data/1create_windows.py:12-63) and
+the bedtools-getfasta sequence extraction of step 4 (data/4create_seqs.py:34)
+with in-process equivalents. ``Fasta`` also serves the variant pipeline
+(pipeline/variants.py).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
+
+import numpy as np
+
+# hg19 chromosome sizes (UCSC), chr1-22 — the reference operates on these
+# (reference: data/create_data.py:40-43 chrom list).
+HG19_SIZES: Dict[str, int] = {
+    "chr1": 249250621, "chr2": 243199373, "chr3": 198022430, "chr4": 191154276,
+    "chr5": 180915260, "chr6": 171115067, "chr7": 159138663, "chr8": 146364022,
+    "chr9": 141213431, "chr10": 135534747, "chr11": 135006516, "chr12": 133851895,
+    "chr13": 115169878, "chr14": 107349540, "chr15": 102531392, "chr16": 90354753,
+    "chr17": 81195210, "chr18": 78077248, "chr19": 59128983, "chr20": 63025520,
+    "chr21": 48129895, "chr22": 51304566,
+}
+
+
+def tile_windows(
+    chrom_size: int, window: int = 1000
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Tile a chromosome into fixed windows (start, end), dropping the ragged
+    tail (reference: data/1create_windows.py tiles [0, size) in 1kb steps)."""
+    n = chrom_size // window
+    starts = np.arange(n, dtype=np.int64) * window
+    return starts, starts + window
+
+
+def extend_windows(
+    starts: np.ndarray, ends: np.ndarray, flank: int, chrom_size: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """+-flank extension, clipped to chromosome bounds
+    (reference: data/3create_windows_with_peaks.py extended windows +-500)."""
+    return (
+        np.maximum(starts - flank, 0),
+        np.minimum(ends + flank, chrom_size),
+    )
 
 
 class Fasta:
