@@ -1,6 +1,7 @@
 """Typed configuration with reference-compatible flags and experiment IDs
 (port of chromegcn_tpu/config.py: the same fields, defaults and derived
-paths, so a run of either package finds the other's files).
+paths, so a run of either package finds the other's files; ``trace_dir``
+is the port's own and names no file of the run).
 
 Replaces the reference's argparse namespace + results-dir string encoding
 (reference: config_args.py:4-143) with a dataclass, while still emitting a
@@ -111,6 +112,10 @@ class Config:
     graph_devices: int = 1         # node-partition mesh size for GCN stage
     tp_devices: int = 1            # tensor-parallel shards for the CNN feature kernel
     graph_strategy: str = "auto"   # auto | halo_bsr | halo | all_gather (parallel/graph.py)
+
+    # the port's own: where a run writes its spans and a short profiler
+    # trace ('' = nowhere; train/runner.py:run)
+    trace_dir: str = ""
 
     def __post_init__(self):
         if self.test_batch_size <= 0:

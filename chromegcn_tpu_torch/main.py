@@ -1,7 +1,8 @@
 """CLI entry point of the PyTorch/CUDA port (port of chromegcn_tpu/main.py).
 
 The parser is the JAX package's, flag for flag (choices and defaults
-included), so a command line carries over. The port runs the reference's
+included), so a command line carries over; ``-trace_dir`` is the port's
+own. The port runs the reference's
 three modes on the card, one after the other:
 
     python -m chromegcn_tpu_torch.main -pretrain -window_model expecto ...
@@ -116,6 +117,12 @@ def build_parser() -> argparse.ArgumentParser:
         "-graph_strategy",
         choices=["auto", "halo_bsr", "halo", "all_gather"],
         default="auto",
+    )
+    p.add_argument(
+        "-trace_dir", type=str, default=defaults.trace_dir,
+        help="the port's own: write DIR/spans.json (every span of the run, device times "
+        "from CUDA events) and DIR/trace.json (torch.profiler over the second epoch's "
+        "train pass, cut at 10 steps), and log one line per span name",
     )
     return p
 

@@ -25,6 +25,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List, Optional
 
+from chromegcn_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
@@ -104,11 +106,13 @@ def build(name: str) -> Optional[str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built first if needed (cached)."""
+    """The kernel library ``name``, built first if needed (cached); the
+    first load in a process is a ``kernel_load`` span."""
     lib = _LOADED.get(name)
     if lib is None:
-        build(name)
-        lib = ctypes.CDLL(str(library_path(name)))
+        with profiling.span("kernel_load", name=name):
+            build(name)
+            lib = ctypes.CDLL(str(library_path(name)))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib

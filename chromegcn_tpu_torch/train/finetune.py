@@ -32,10 +32,12 @@ from torch import nn
 
 from chromegcn_tpu_torch import DeviceLike, resolve_device
 from chromegcn_tpu_torch.data.loader import ChromFeatures
+from chromegcn_tpu_torch.ops import _build
 from chromegcn_tpu_torch.ops.sparse import SparseGraph
 from chromegcn_tpu_torch.parallel.mesh import all_reduce_grads, gather_rows
 from chromegcn_tpu_torch.train.loss import bce_with_logits
 from chromegcn_tpu_torch.train.optim import make_optimizer
+from chromegcn_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -118,21 +120,37 @@ def chrome_train_step(
     """One chromosome, one optimizer step; returns (state, loss, probs).
 
     Updates the state's model and optimizer in place. Dropout masks come
-    from ``generator`` (on the inputs' device)."""
+    from ``generator`` (on the inputs' device). Spans (utils/profiling.py):
+    ``train_step`` with the kernel launches it made (``_build.LAUNCHES``),
+    over ``optimizer`` (zero_grad, then the step), ``forward`` (both
+    strands, and ``loss``: the head and the loss), ``backward``, on a
+    sharded graph ``grad_allreduce``, and a second ``loss`` (the
+    probabilities, after the step)."""
     device = resolve_device(device)
     x_f, x_r, targets = _on(device, x_f, x_r, targets)
     model, opt = state.model, state.optimizer
-    opt.zero_grad(set_to_none=True)
-    _, h_f, _ = model(x_f, graph, train=True, skip_head=True, generator=generator)
-    _, h_r, _ = model(x_r, graph, train=True, skip_head=True, generator=generator)
-    pred = model.out((h_f + h_r) / 2.0)
     group = getattr(graph, "group", None)
-    loss = bce_with_logits(pred, targets, graph.node_mask, group)
-    loss.backward()
-    all_reduce_grads(model.parameters(), group)
-    opt.step()
+    with profiling.span("train_step", counters=_build.LAUNCHES):
+        with profiling.span("optimizer"):
+            opt.zero_grad(set_to_none=True)
+        with profiling.span("forward"):
+            _, h_f, _ = model(x_f, graph, train=True, skip_head=True, generator=generator)
+            _, h_r, _ = model(x_r, graph, train=True, skip_head=True, generator=generator)
+            with profiling.span("loss"):
+                pred = model.out((h_f + h_r) / 2.0)
+                loss = bce_with_logits(pred, targets, graph.node_mask, group)
+        with profiling.span("backward"):
+            loss.backward()
+        if group is not None:
+            with profiling.span("grad_allreduce"):
+                all_reduce_grads(model.parameters(), group)
+        with profiling.span("optimizer"):
+            opt.step()
+        # after the backward, which would otherwise hold N x nclass more
+        with profiling.span("loss"):
+            probs = torch.sigmoid(pred.detach())
     state.step += 1
-    return state, loss.detach(), torch.sigmoid(pred.detach())
+    return state, loss.detach(), probs
 
 
 @torch.no_grad()
@@ -148,11 +166,12 @@ def chrome_eval_step(
     device = resolve_device(device)
     x_f, x_r, targets = _on(device, x_f, x_r, targets)
     model = state.model
-    _, h_f, _ = model(x_f, graph, train=False, skip_head=True)
-    _, h_r, _ = model(x_r, graph, train=False, skip_head=True)
-    pred = model.out((h_f + h_r) / 2.0)
-    loss = bce_with_logits(pred, targets, graph.node_mask, getattr(graph, "group", None))
-    return loss, torch.sigmoid(pred)
+    with profiling.span("eval_step"):
+        _, h_f, _ = model(x_f, graph, train=False, skip_head=True)
+        _, h_r, _ = model(x_r, graph, train=False, skip_head=True)
+        pred = model.out((h_f + h_r) / 2.0)
+        loss = bce_with_logits(pred, targets, graph.node_mask, getattr(graph, "group", None))
+        return loss, torch.sigmoid(pred)
 
 
 def bucket_nodes(n: int, bucket: int = 2048) -> int:

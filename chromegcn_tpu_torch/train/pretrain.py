@@ -49,11 +49,13 @@ from chromegcn_tpu_torch import DeviceLike, resolve_device
 from chromegcn_tpu_torch.data.loader import ChromFeatures, WindowDataset, iterate_batches
 from chromegcn_tpu_torch.models.norm import sync_batch_norm
 from chromegcn_tpu_torch.models.strand import NonStrandSpecific
+from chromegcn_tpu_torch.ops import _build
 from chromegcn_tpu_torch.parallel.mesh import all_reduce_grads, gather_rows, group_rank
 from chromegcn_tpu_torch.parallel.multihost import host_batch_slice
 from chromegcn_tpu_torch.train.finetune import _on
 from chromegcn_tpu_torch.train.loss import bce_with_logits
 from chromegcn_tpu_torch.train.optim import make_optimizer
+from chromegcn_tpu_torch.utils import profiling
 
 # batches between two device-to-host copies of the epoch's step outputs
 DRAIN_EVERY = 32
@@ -111,19 +113,31 @@ def window_train_step(
     included (the window model gets no mask); only the loss excludes the
     rows ``row_mask`` marks False. Updates the model and optimizer in place;
     dropout masks come from ``generator``. Under data parallelism the
-    arrays are this rank's rows of the batch, and the probabilities too."""
+    arrays are this rank's rows of the batch, and the probabilities too.
+    Spans as ``finetune.chrome_train_step``'s; the head is inside the
+    model, so the first ``loss`` holds the loss alone."""
     device = resolve_device(device)
     tokens, targets, row_mask = _on(device, tokens, targets, row_mask)
     model, opt = state.model, state.optimizer
     model.train()
-    opt.zero_grad(set_to_none=True)
-    _, _, logits = model(tokens, comp_map, generator=generator)
-    loss = bce_with_logits(logits, targets, row_mask, state.group)
-    loss.backward()
-    all_reduce_grads(model.parameters(), state.group)
-    opt.step()
+    with profiling.span("train_step", counters=_build.LAUNCHES):
+        with profiling.span("optimizer"):
+            opt.zero_grad(set_to_none=True)
+        with profiling.span("forward"):
+            _, _, logits = model(tokens, comp_map, generator=generator)
+            with profiling.span("loss"):
+                loss = bce_with_logits(logits, targets, row_mask, state.group)
+        with profiling.span("backward"):
+            loss.backward()
+        if state.group is not None:
+            with profiling.span("grad_allreduce"):
+                all_reduce_grads(model.parameters(), state.group)
+        with profiling.span("optimizer"):
+            opt.step()
+        with profiling.span("loss"):
+            probs = torch.sigmoid(logits.detach())
     state.step += 1
-    return state, loss.detach(), torch.sigmoid(logits.detach())
+    return state, loss.detach(), probs
 
 
 @torch.no_grad()
@@ -140,9 +154,10 @@ def window_eval_step(
     device = resolve_device(device)
     tokens, targets, row_mask = _on(device, tokens, targets, row_mask)
     state.model.eval()
-    x_f, x_r, logits = state.model(tokens, comp_map)
-    loss = bce_with_logits(logits, targets, row_mask, state.group)
-    return loss, torch.sigmoid(logits), x_f, x_r
+    with profiling.span("eval_step"):
+        x_f, x_r, logits = state.model(tokens, comp_map)
+        loss = bce_with_logits(logits, targets, row_mask, state.group)
+        return loss, torch.sigmoid(logits), x_f, x_r
 
 
 def run_window_epoch(

@@ -28,12 +28,19 @@ tensors, NCCL for CUDA ones), or the mesh raises.
   model axis minor.
 Every rank computes the same metrics from gathered predictions; only rank 0
 writes logs, features and checkpoints.
+
+Spans (utils/profiling.py), always recorded: each epoch is an ``epoch``
+span over a ``pass`` span a split (its duration, in minutes, is the split's
+metrics' ``time``) and the ``metrics``, ``log``, ``snapshot``
+(utils/evals.py), ``checkpoint`` and ``save_feats`` spans; each split's
+graph build is a ``graph_build`` span.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -50,6 +57,7 @@ from chromegcn_tpu_torch.data.loader import (
 )
 from chromegcn_tpu_torch.models.chrome import make_chrome_model
 from chromegcn_tpu_torch.models.window import make_window_model
+from chromegcn_tpu_torch.ops import _build
 from chromegcn_tpu_torch.ops.seq import complement_permutation
 from chromegcn_tpu_torch.ops.sparse import SparseGraph, build_chrom_graph
 from chromegcn_tpu_torch.ops.spmm_bsr import BSROperator
@@ -64,6 +72,7 @@ from chromegcn_tpu_torch.train import finetune as ft
 from chromegcn_tpu_torch.train import pretrain as pt
 from chromegcn_tpu_torch.train.joint import joint_eval_step, joint_train_step
 from chromegcn_tpu_torch.train.optim import set_learning_rate, steplr_lr
+from chromegcn_tpu_torch.utils import profiling
 from chromegcn_tpu_torch.utils.evals import (
     BestTracker,
     EpochLogger,
@@ -83,12 +92,28 @@ def _check_finite(loss: float, where: str) -> float:
     return loss
 
 
-def _metrics_for(preds, targs, loss, elapsed, cfg: Config, label_names):
-    return compute_metrics(
-        preds, targs, loss, elapsed,
-        label_names=label_names, cell_type=cfg.cell_type,
-        br_threshold=cfg.br_threshold,
-    )
+def _metrics_for(split: str, preds, targs, loss, elapsed, cfg: Config, label_names):
+    """``compute_metrics`` (looked up here at each call) in a ``metrics``
+    span; ``elapsed`` is the pass's minutes, the metrics' ``time``."""
+    with profiling.span("metrics", split=split):
+        return compute_metrics(
+            preds, targs, loss, elapsed,
+            label_names=label_names, cell_type=cfg.cell_type,
+            br_threshold=cfg.br_threshold,
+        )
+
+
+# optimizer steps that -trace_dir's profiler trace covers
+TRACE_STEPS = 10
+
+
+def _traced(cfg: Config, epoch: int, start_epoch: int):
+    """With -trace_dir, a profiler trace (``profiling.trace``) for the train
+    pass of the run's second epoch (its first where it has only one), cut at
+    TRACE_STEPS optimizer steps; otherwise nothing."""
+    if cfg.trace_dir and epoch == min(start_epoch + 1, cfg.epochs):
+        return profiling.trace(cfg.trace_dir, steps=TRACE_STEPS)
+    return contextlib.nullcontext()
 
 
 def _quiet(*_):
@@ -199,62 +224,69 @@ def run_pretrain(cfg: Config, splits: Dict[str, WindowDataset],
         )
 
     for epoch in range(start_epoch, cfg.epochs + 1):
-        t_epoch = time.time()
-        set_learning_rate(state.optimizer,
-                          steplr_lr(cfg.lr, epoch, cfg.lr_decay2 > 0, cfg.lr_step_size2))
+        with profiling.span("epoch", epoch=epoch) as ep:
+            set_learning_rate(state.optimizer,
+                              steplr_lr(cfg.lr, epoch, cfg.lr_decay2 > 0, cfg.lr_step_size2))
 
-        train_metrics = valid_metrics = None
-        valid_loss, score = 0.0, 0.0
-        valid_out = (None, None)
-        if not cfg.test_only and not cfg.save_feats:
-            t0 = time.time()
-            _, preds, targs, loss, _ = epoch_pass("train", cfg.pretrain)
-            _check_finite(loss, f"pretrain epoch {epoch}")
-            train_metrics = _metrics_for(
-                preds, targs, loss, (time.time() - t0) / 60, cfg, label_names
+            train_metrics = valid_metrics = None
+            valid_loss, score = 0.0, 0.0
+            valid_out = (None, None)
+            if not cfg.test_only and not cfg.save_feats:
+                with _traced(cfg, epoch, start_epoch), \
+                        profiling.span("pass", split="train", train=cfg.pretrain) as ps:
+                    _, preds, targs, loss, _ = epoch_pass("train", cfg.pretrain)
+                _check_finite(loss, f"pretrain epoch {epoch}")
+                train_metrics = _metrics_for(
+                    "train", preds, targs, loss, ps.seconds / 60, cfg, label_names
+                )
+                with profiling.span("pass", split="valid", train=False) as ps:
+                    _, preds, targs, valid_loss, _ = epoch_pass("valid")
+                valid_metrics = _metrics_for(
+                    "valid", preds, targs, valid_loss, ps.seconds / 60, cfg, label_names
+                )
+                valid_out = (preds, targs)
+                score = selection_score(valid_metrics)
+                score_history.append(score)
+
+            with profiling.span("pass", split="test", train=False) as ps:
+                _, test_preds, test_targs, test_loss, test_feats = epoch_pass(
+                    "test", collect_features=cfg.save_feats
+                )
+            test_metrics = _metrics_for(
+                "test", test_preds, test_targs, test_loss, ps.seconds / 60, cfg, label_names
             )
-            t0 = time.time()
-            _, preds, targs, valid_loss, _ = epoch_pass("valid")
-            valid_metrics = _metrics_for(
-                preds, targs, valid_loss, (time.time() - t0) / 60, cfg, label_names
-            )
-            valid_out = (preds, targs)
-            score = selection_score(valid_metrics)
-            score_history.append(score)
 
-        t0 = time.time()
-        _, test_preds, test_targs, test_loss, test_feats = epoch_pass(
-            "test", collect_features=cfg.save_feats
-        )
-        test_metrics = _metrics_for(
-            test_preds, test_targs, test_loss, (time.time() - t0) / 60, cfg, label_names
-        )
+            tracker.evaluate(valid_metrics, test_metrics, epoch)
+            if not cfg.save_feats:
+                # the feature dump logs no rows: they would follow the pretrain
+                # epochs as a duplicate 'epoch 1' (reference: runner.py:214-221)
+                with profiling.span("log"):
+                    logger.log("train", epoch, train_metrics["loss"] if train_metrics else 0,
+                               train_metrics)
+                    logger.log("valid", epoch, valid_loss, valid_metrics)
+                    logger.log("test", epoch, test_loss, test_metrics)
 
-        tracker.evaluate(valid_metrics, test_metrics, epoch)
-        if not cfg.save_feats:
-            # the feature dump logs no rows: they would follow the pretrain
-            # epochs as a duplicate 'epoch 1' (reference: runner.py:214-221)
-            logger.log("train", epoch, train_metrics["loss"] if train_metrics else 0,
-                       train_metrics)
-            logger.log("valid", epoch, valid_loss, valid_metrics)
-            logger.log("test", epoch, test_loss, test_metrics)
-
-        if cfg.save_feats:
-            # every split's features, in eval mode (reference: runner.py:223-238)
-            for split in ("train", "valid", "test"):
-                feats = test_feats if split == "test" else epoch_pass(split, collect_features=True)[4]
-                if main:
-                    save_chrom_features(cfg.feature_path(split), feats)
-                verbose(f"saved features: {cfg.feature_path(split)}")
-        elif valid_metrics is not None:
-            logger.maybe_snapshot(epoch, valid_loss, score, *valid_out, test_preds, test_targs)
-            if cfg.pretrain and (cfg.save_mode == "all" or score >= max(score_history)):
-                save(epoch, score)
-        verbose(
-            f"epoch {epoch}: test meanAUC={test_metrics['meanAUC']:.4f} "
-            f"meanAUPR={test_metrics['meanAUPR']:.4f} loss={test_loss:.3f} "
-            f"({time.time() - t_epoch:.1f} s)"
-        )
+            if cfg.save_feats:
+                # every split's features, in eval mode (reference: runner.py:223-238)
+                with profiling.span("save_feats"):
+                    for split in ("train", "valid", "test"):
+                        feats = (test_feats if split == "test"
+                                 else epoch_pass(split, collect_features=True)[4])
+                        if main:
+                            save_chrom_features(cfg.feature_path(split), feats)
+                        verbose(f"saved features: {cfg.feature_path(split)}")
+            elif valid_metrics is not None:
+                logger.maybe_snapshot(epoch, valid_loss, score, *valid_out, test_preds,
+                                      test_targs)
+                if cfg.pretrain and (cfg.save_mode == "all" or score >= max(score_history)):
+                    with profiling.span("checkpoint"):
+                        save(epoch, score)
+            with profiling.span("log"):
+                verbose(
+                    f"epoch {epoch}: test meanAUC={test_metrics['meanAUC']:.4f} "
+                    f"meanAUPR={test_metrics['meanAUPR']:.4f} loss={test_loss:.3f} "
+                    f"({ep.seconds:.1f} s)"
+                )
         if cfg.early_stop_patience > 0 and valid_metrics is not None:
             prior_best = max(score_history[:-1], default=float("-inf"))
             since_improve = 0 if score > prior_best else since_improve + 1
@@ -294,27 +326,33 @@ def build_split_graphs(
     form, the hybrid one, or for 'auto' whichever the card's cost model
     finds cheaper. ``n_shards`` > 1 pads to lcm(2048, 128 n_shards), so
     each shard's rows are a multiple of the 128-row tile, and attaches no
-    flat form: ``shard_split_graphs`` builds the per-shard ones."""
+    flat form: ``shard_split_graphs`` builds the per-shard ones. Spans: a
+    ``graph_build`` over a ``graph`` (the adjacency) and an ``operator``
+    (the host operator build and the cost model) for each chromosome."""
     device = resolve_device(device)
-    hic_edges = None
-    if cfg.adj_type in ("hic", "both"):
-        hic_edges = artifact.load_graph_edges(cfg.graph_path(split))
     use_bsr = _use_bsr(cfg, device) and n_shards <= 1
     bucket = 2048 if n_shards <= 1 else int(np.lcm(2048, 128 * n_shards))
     graphs = {}
-    for chrom, cf in features.items():
-        n_valid = cf.forward.shape[0]
-        g = build_chrom_graph(
-            cfg.adj_type,
-            n_valid=n_valid,
-            n_pad=ft.bucket_nodes(n_valid, bucket=bucket),
-            edge_capacity=edge_capacity,
-            hic_edges=None if hic_edges is None else hic_edges[chrom],
-            device=device,
-        )
-        if use_bsr:
-            g = attach_auto(g, dtype=cfg.spmm_dtype, strategy=cfg.spmm_form, device=device)
-        graphs[chrom] = g
+    with profiling.span("graph_build", split=split):
+        hic_edges = None
+        if cfg.adj_type in ("hic", "both"):
+            hic_edges = artifact.load_graph_edges(cfg.graph_path(split))
+        for chrom, cf in features.items():
+            n_valid = cf.forward.shape[0]
+            with profiling.span("graph"):
+                g = build_chrom_graph(
+                    cfg.adj_type,
+                    n_valid=n_valid,
+                    n_pad=ft.bucket_nodes(n_valid, bucket=bucket),
+                    edge_capacity=edge_capacity,
+                    hic_edges=None if hic_edges is None else hic_edges[chrom],
+                    device=device,
+                )
+            if use_bsr:
+                with profiling.span("operator"):
+                    g = attach_auto(g, dtype=cfg.spmm_dtype, strategy=cfg.spmm_form,
+                                    device=device)
+            graphs[chrom] = g
     if use_bsr:
         forms = sorted({_FORM_NAMES[type(g.bsr)] for g in graphs.values()})
         verbose(
@@ -443,50 +481,55 @@ def run_finetune(cfg: Config, device: DeviceLike = "cuda", verbose=print):
         )
 
     for epoch in range(start_epoch, cfg.epochs + 1):
-        t_epoch = time.time()
-        lr_e = steplr_lr(lr, epoch, cfg.lr_decay2 > 0, cfg.lr_step_size2)
-        set_learning_rate(state.optimizer, lr_e)
+        with profiling.span("epoch", epoch=epoch) as ep:
+            lr_e = steplr_lr(lr, epoch, cfg.lr_decay2 > 0, cfg.lr_step_size2)
+            set_learning_rate(state.optimizer, lr_e)
 
-        train_metrics = valid_metrics = None
-        valid_loss, score = 0.0, 0.0
-        valid_out = (None, None)
-        if not cfg.load_gcn and not cfg.test_only:
-            t0 = time.time()
-            _, preds, targs, loss = epoch_pass("train", True)
-            _check_finite(loss, f"finetune epoch {epoch}")
-            train_metrics = _metrics_for(
-                preds, targs, loss, (time.time() - t0) / 60, cfg, label_names
-            )
-            t0 = time.time()
-            _, preds, targs, valid_loss = epoch_pass("valid", False)
-            valid_metrics = _metrics_for(
-                preds, targs, valid_loss, (time.time() - t0) / 60, cfg, label_names
-            )
-            valid_out = (preds, targs)
-            score = selection_score(valid_metrics)
-            score_history.append(score)
+            train_metrics = valid_metrics = None
+            valid_loss, score = 0.0, 0.0
+            valid_out = (None, None)
+            if not cfg.load_gcn and not cfg.test_only:
+                with _traced(cfg, epoch, start_epoch), \
+                        profiling.span("pass", split="train", train=True) as ps:
+                    _, preds, targs, loss = epoch_pass("train", True)
+                _check_finite(loss, f"finetune epoch {epoch}")
+                train_metrics = _metrics_for(
+                    "train", preds, targs, loss, ps.seconds / 60, cfg, label_names
+                )
+                with profiling.span("pass", split="valid", train=False) as ps:
+                    _, preds, targs, valid_loss = epoch_pass("valid", False)
+                valid_metrics = _metrics_for(
+                    "valid", preds, targs, valid_loss, ps.seconds / 60, cfg, label_names
+                )
+                valid_out = (preds, targs)
+                score = selection_score(valid_metrics)
+                score_history.append(score)
 
-        t0 = time.time()
-        _, test_preds, test_targs, test_loss = epoch_pass("test", False)
-        test_metrics = _metrics_for(
-            test_preds, test_targs, test_loss, (time.time() - t0) / 60, cfg, label_names
-        )
-
-        tracker.evaluate(valid_metrics, test_metrics, epoch)
-        logger.log("train", epoch, train_metrics["loss"] if train_metrics else 0, train_metrics)
-        logger.log("valid", epoch, valid_loss, valid_metrics)
-        logger.log("test", epoch, test_loss, test_metrics)
-        if valid_metrics is not None:
-            logger.maybe_snapshot(
-                epoch, valid_loss, score, *valid_out, test_preds, test_targs
+            with profiling.span("pass", split="test", train=False) as ps:
+                _, test_preds, test_targs, test_loss = epoch_pass("test", False)
+            test_metrics = _metrics_for(
+                "test", test_preds, test_targs, test_loss, ps.seconds / 60, cfg, label_names
             )
-            if main and (cfg.save_mode == "all" or score >= max(score_history)):
-                ckpt.save_checkpoint(run_dir, state, epoch, cfg.save_mode, score)
-        verbose(
-            f"epoch {epoch}: test meanAUC={test_metrics['meanAUC']:.4f} "
-            f"meanAUPR={test_metrics['meanAUPR']:.4f} loss={test_loss:.3f} "
-            f"({time.time() - t_epoch:.1f} s)"
-        )
+
+            tracker.evaluate(valid_metrics, test_metrics, epoch)
+            with profiling.span("log"):
+                logger.log("train", epoch, train_metrics["loss"] if train_metrics else 0,
+                           train_metrics)
+                logger.log("valid", epoch, valid_loss, valid_metrics)
+                logger.log("test", epoch, test_loss, test_metrics)
+            if valid_metrics is not None:
+                logger.maybe_snapshot(
+                    epoch, valid_loss, score, *valid_out, test_preds, test_targs
+                )
+                if main and (cfg.save_mode == "all" or score >= max(score_history)):
+                    with profiling.span("checkpoint"):
+                        ckpt.save_checkpoint(run_dir, state, epoch, cfg.save_mode, score)
+            with profiling.span("log"):
+                verbose(
+                    f"epoch {epoch}: test meanAUC={test_metrics['meanAUC']:.4f} "
+                    f"meanAUPR={test_metrics['meanAUPR']:.4f} loss={test_loss:.3f} "
+                    f"({ep.seconds:.1f} s)"
+                )
         if cfg.early_stop_patience > 0 and valid_metrics is not None:
             prior_best = max(score_history[:-1], default=float("-inf"))
             since_improve = 0 if score > prior_best else since_improve + 1
@@ -505,10 +548,32 @@ def run(cfg: Config, splits: Optional[Dict[str, WindowDataset]] = None,
     """Top-level dispatch (reference: runner.py:536-545); ``splits`` default
     to the dataset file's, ``device`` to the card. With more than one device
     asked for, joins the process group this process was launched into
-    (``parallel.mesh.init_distributed``)."""
+    (``parallel.mesh.init_distributed``). With ``-trace_dir DIR`` (rank r > 0:
+    ``DIR/rank<r>``) every span also times the device, ``DIR/trace.json``
+    holds the profiler's trace of a few train steps (``_traced``), and at
+    the end ``DIR/spans.json`` holds the spans and the kernel launches and
+    the log one line per span name."""
     device = resolve_device(device)
     if max(cfg.graph_devices, cfg.dp_devices, cfg.tp_devices) > 1:
         init_distributed(device)
+    if not cfg.trace_dir:
+        return _run_mode(cfg, splits, device, verbose)
+    rank = torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
+    if rank:
+        cfg = dataclasses.replace(cfg, trace_dir=os.path.join(cfg.trace_dir, f"rank{rank}"))
+    profiling.device_timing(True)
+    try:
+        return _run_mode(cfg, splits, device, verbose)
+    finally:
+        profiling.device_timing(False)
+        profiling.export(os.path.join(cfg.trace_dir, "spans.json"),
+                         {"launches": _build.LAUNCHES})
+        if rank == 0:
+            for line in profiling.summary():
+                verbose(line)
+
+
+def _run_mode(cfg: Config, splits, device: torch.device, verbose):
     if cfg.joint:
         return run_joint(cfg, splits, device=device, verbose=verbose)
     if cfg.pretrain or cfg.save_feats:
@@ -583,18 +648,21 @@ def run_joint(cfg: Config, splits: Optional[Dict[str, WindowDataset]] = None,
     graphs = {}
     for split, per in data.items():
         graphs[split] = {}
-        for chrom, entry in per.items():
-            g = build_chrom_graph(
-                cfg.adj_type, n_valid=entry["n_valid"], n_pad=entry["tokens"].shape[0],
-                hic_edges=hic[split][chrom] if hic else None, device=device)
-            if mesh is not None:
-                g = shard_graph(g, n_shards, strategy=_graph_strategy(cfg, device),
-                                spmm_dtype=cfg.spmm_dtype, group=mesh.group("graph"))
-            elif use_bsr:
-                # no -spmm_dtype here: the reference attaches the operator
-                # without it (runner.py:643), so joint mode runs f32 tiles
-                g = attach_auto(g, strategy=cfg.spmm_form, device=device)
-            graphs[split][chrom] = g
+        with profiling.span("graph_build", split=split):
+            for chrom, entry in per.items():
+                with profiling.span("graph"):
+                    g = build_chrom_graph(
+                        cfg.adj_type, n_valid=entry["n_valid"], n_pad=entry["tokens"].shape[0],
+                        hic_edges=hic[split][chrom] if hic else None, device=device)
+                if mesh is not None:
+                    g = shard_graph(g, n_shards, strategy=_graph_strategy(cfg, device),
+                                    spmm_dtype=cfg.spmm_dtype, group=mesh.group("graph"))
+                elif use_bsr:
+                    # no -spmm_dtype here: the reference attaches the operator
+                    # without it (runner.py:643), so joint mode runs f32 tiles
+                    with profiling.span("operator"):
+                        g = attach_auto(g, strategy=cfg.spmm_form, device=device)
+                graphs[split][chrom] = g
 
     wmodel = make_window_model(cfg.window_model, n_targets, seq_length=cfg.seq_length,
                                d_model=cfg.d_model)
@@ -658,25 +726,35 @@ def run_joint(cfg: Config, splits: Optional[Dict[str, WindowDataset]] = None,
         return None, None, total
 
     for epoch in range(start_epoch, cfg.epochs + 1):
-        t0 = time.time()
-        _, _, train_loss = run_split("train", train=True)
-        v_preds, v_targs, valid_loss = run_split("valid", train=False)
-        valid_metrics = _metrics_for(v_preds, v_targs, valid_loss, (time.time() - t0) / 60,
-                                     cfg, label_names)
-        t_preds, t_targs, test_loss = run_split("test", train=False)
-        test_metrics = _metrics_for(t_preds, t_targs, test_loss, 0.0, cfg, label_names)
-        tracker.evaluate(valid_metrics, test_metrics, epoch)
-        # the train step makes no predictions: its line carries the loss only
-        logger.log_loss("train", epoch, train_loss)
-        logger.log("valid", epoch, valid_loss, valid_metrics)
-        logger.log("test", epoch, test_loss, test_metrics)
-        score = selection_score(valid_metrics)
-        if (logger.maybe_snapshot(epoch, valid_loss, score, v_preds, v_targs, t_preds, t_targs)
-                and main):
-            ckpt.save_joint_checkpoint(run_dir, wstate, cstate, epoch)
-        verbose(
-            f"epoch {epoch}: joint test meanAUC={test_metrics['meanAUC']:.4f} "
-            f"meanAUPR={test_metrics['meanAUPR']:.4f} loss={test_loss:.3f} "
-            f"({time.time() - t0:.1f} s)"
-        )
+        with profiling.span("epoch", epoch=epoch) as ep:
+            with _traced(cfg, epoch, start_epoch), \
+                    profiling.span("pass", split="train", train=True) as ps_train:
+                _, _, train_loss = run_split("train", train=True)
+            with profiling.span("pass", split="valid", train=False) as ps:
+                v_preds, v_targs, valid_loss = run_split("valid", train=False)
+            # the valid metrics' time covers the train and valid passes
+            valid_metrics = _metrics_for("valid", v_preds, v_targs, valid_loss,
+                                         (ps_train.seconds + ps.seconds) / 60, cfg, label_names)
+            with profiling.span("pass", split="test", train=False):
+                t_preds, t_targs, test_loss = run_split("test", train=False)
+            test_metrics = _metrics_for("test", t_preds, t_targs, test_loss, 0.0, cfg,
+                                        label_names)
+            tracker.evaluate(valid_metrics, test_metrics, epoch)
+            with profiling.span("log"):
+                # the train step makes no predictions: its line carries the loss only
+                logger.log_loss("train", epoch, train_loss)
+                logger.log("valid", epoch, valid_loss, valid_metrics)
+                logger.log("test", epoch, test_loss, test_metrics)
+            score = selection_score(valid_metrics)
+            if (logger.maybe_snapshot(epoch, valid_loss, score, v_preds, v_targs, t_preds,
+                                      t_targs)
+                    and main):
+                with profiling.span("checkpoint"):
+                    ckpt.save_joint_checkpoint(run_dir, wstate, cstate, epoch)
+            with profiling.span("log"):
+                verbose(
+                    f"epoch {epoch}: joint test meanAUC={test_metrics['meanAUC']:.4f} "
+                    f"meanAUPR={test_metrics['meanAUPR']:.4f} loss={test_loss:.3f} "
+                    f"({ep.seconds:.1f} s)"
+                )
     return (wstate, cstate), tracker

@@ -20,7 +20,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from chromegcn_tpu_torch.utils import metrics
+from chromegcn_tpu_torch.utils import metrics, profiling
 
 
 def _label_type_indices(label_names: Sequence[str], cell_type: str):
@@ -242,4 +242,5 @@ class EpochLogger:
 
     def _snapshot(self, path: str, **arrays) -> None:
         if self.writes:
-            np.savez_compressed(path, **arrays)
+            with profiling.span("snapshot"):
+                np.savez_compressed(path, **arrays)

@@ -16,7 +16,6 @@ import torch
 from chromegcn_tpu.ops import reorder as jreorder
 from chromegcn_tpu.ops import sparse as jsp
 from chromegcn_tpu.utils import parity as jparity
-from chromegcn_tpu.utils import profiling as jprofiling
 from chromegcn_tpu.utils import torch_port as jport
 from chromegcn_tpu_torch.data.synthetic import make_hic_edges
 from chromegcn_tpu_torch.models.chrome import make_chrome_model
@@ -199,20 +198,6 @@ def test_port_chromegcn_and_chromernn_match_the_composition():
 # ---------------------------------------------------------------------------
 # profiling and the parity harness
 # ---------------------------------------------------------------------------
-
-
-def test_throughput_matches_jax(monkeypatch):
-    """The same EMA rates from the same clock readings."""
-    clock = iter([1.0, 1.5, 3.5, 4.0] * 2)
-    monkeypatch.setattr(tprofiling.time, "perf_counter", lambda: next(clock))
-    ours = tprofiling.Throughput(alpha=0.25)
-    ours.start()
-    ours_rates = [ours.step(edges=100, windows=4) for _ in range(3)]
-    monkeypatch.setattr(jprofiling.time, "perf_counter", lambda: next(clock))
-    ref = jprofiling.Throughput(alpha=0.25)
-    ref.start()
-    ref_rates = [ref.step(edges=100, windows=4) for _ in range(3)]
-    assert ours_rates == ref_rates and ours.summary() == ref.summary()
 
 
 def test_trace_and_block_on(tmp_path):
