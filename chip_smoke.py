@@ -2345,17 +2345,26 @@ def main():
                 f"{split} loss {logs[split][e][1]:.6f} meanAUC {logs[split][e][3]:.4f}"
                 for split in logs))
         log(f"  {CLI_EPOCHS} epochs in {t_cli:.1f} s (set-up included); launches {cli_counts}")
-        # the host's share of an epoch: the metrics over one split's predictions
+        # an epoch's metrics over one split's predictions, on the card as the
+        # runner computes them, and on the host's CPU
         from chromegcn_tpu_torch.utils.evals import compute_metrics
 
         rng = np.random.default_rng(1)
         for split, (_, n, _, _) in CLI_SPLITS.items():
             preds = rng.random((n, NCLASS), dtype=np.float32)
             targs = (rng.random((n, NCLASS)) < 0.05).astype(np.float32)
-            t0 = time.perf_counter()
-            compute_metrics(preds, targs, 0.0)
-            log(f"  host compute_metrics over {split}'s {n} x {NCLASS} predictions: "
-                f"{time.perf_counter() - t0:.1f} s")
+            seconds = {}
+            for where, calls in (("cuda", 5), ("cpu", 3)):
+                seconds[where] = []
+                for _ in range(calls):
+                    t0 = time.perf_counter()
+                    compute_metrics(preds, targs, 0.0, device=where)
+                    seconds[where].append(time.perf_counter() - t0)
+            log(f"  compute_metrics over {split}'s {n} x {NCLASS} predictions, median "
+                f"(min-max) of {len(seconds['cuda'])} and {len(seconds['cpu'])} calls: card "
+                f"{np.median(seconds['cuda']):.3f} s ({min(seconds['cuda']):.3f}-"
+                f"{max(seconds['cuda']):.3f}), host CPU {np.median(seconds['cpu']):.3f} s "
+                f"({min(seconds['cpu']):.3f}-{max(seconds['cpu']):.3f})")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     require(all(len(v) == CLI_EPOCHS for v in logs.values()), "CLI logged a wrong epoch count")

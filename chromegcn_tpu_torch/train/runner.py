@@ -72,7 +72,7 @@ from chromegcn_tpu_torch.train import finetune as ft
 from chromegcn_tpu_torch.train import pretrain as pt
 from chromegcn_tpu_torch.train.joint import joint_eval_step, joint_train_step
 from chromegcn_tpu_torch.train.optim import set_learning_rate, steplr_lr
-from chromegcn_tpu_torch.utils import profiling
+from chromegcn_tpu_torch.utils import metrics, profiling
 from chromegcn_tpu_torch.utils.evals import (
     BestTracker,
     EpochLogger,
@@ -92,14 +92,17 @@ def _check_finite(loss: float, where: str) -> float:
     return loss
 
 
-def _metrics_for(split: str, preds, targs, loss, elapsed, cfg: Config, label_names):
-    """``compute_metrics`` (looked up here at each call) in a ``metrics``
-    span; ``elapsed`` is the pass's minutes, the metrics' ``time``."""
-    with profiling.span("metrics", split=split):
+def _metrics_for(split: str, preds, targs, loss, elapsed, cfg: Config, label_names,
+                 device: torch.device):
+    """``compute_metrics`` (looked up here at each call) on ``device`` in a
+    ``metrics`` span, which records the device type and, as counters, the
+    labels scored and the column blocks run; ``elapsed`` is the pass's
+    minutes, the metrics' ``time``."""
+    with profiling.span("metrics", split=split, device=device.type, counters=metrics.COUNTS):
         return compute_metrics(
             preds, targs, loss, elapsed,
             label_names=label_names, cell_type=cfg.cell_type,
-            br_threshold=cfg.br_threshold,
+            br_threshold=cfg.br_threshold, device=device,
         )
 
 
@@ -237,12 +240,14 @@ def run_pretrain(cfg: Config, splits: Dict[str, WindowDataset],
                     _, preds, targs, loss, _ = epoch_pass("train", cfg.pretrain)
                 _check_finite(loss, f"pretrain epoch {epoch}")
                 train_metrics = _metrics_for(
-                    "train", preds, targs, loss, ps.seconds / 60, cfg, label_names
+                    "train", preds, targs, loss, ps.seconds / 60, cfg, label_names,
+                    device,
                 )
                 with profiling.span("pass", split="valid", train=False) as ps:
                     _, preds, targs, valid_loss, _ = epoch_pass("valid")
                 valid_metrics = _metrics_for(
-                    "valid", preds, targs, valid_loss, ps.seconds / 60, cfg, label_names
+                    "valid", preds, targs, valid_loss, ps.seconds / 60, cfg, label_names,
+                    device,
                 )
                 valid_out = (preds, targs)
                 score = selection_score(valid_metrics)
@@ -253,7 +258,8 @@ def run_pretrain(cfg: Config, splits: Dict[str, WindowDataset],
                     "test", collect_features=cfg.save_feats
                 )
             test_metrics = _metrics_for(
-                "test", test_preds, test_targs, test_loss, ps.seconds / 60, cfg, label_names
+                "test", test_preds, test_targs, test_loss, ps.seconds / 60, cfg, label_names,
+                device,
             )
 
             tracker.evaluate(valid_metrics, test_metrics, epoch)
@@ -494,12 +500,14 @@ def run_finetune(cfg: Config, device: DeviceLike = "cuda", verbose=print):
                     _, preds, targs, loss = epoch_pass("train", True)
                 _check_finite(loss, f"finetune epoch {epoch}")
                 train_metrics = _metrics_for(
-                    "train", preds, targs, loss, ps.seconds / 60, cfg, label_names
+                    "train", preds, targs, loss, ps.seconds / 60, cfg, label_names,
+                    device,
                 )
                 with profiling.span("pass", split="valid", train=False) as ps:
                     _, preds, targs, valid_loss = epoch_pass("valid", False)
                 valid_metrics = _metrics_for(
-                    "valid", preds, targs, valid_loss, ps.seconds / 60, cfg, label_names
+                    "valid", preds, targs, valid_loss, ps.seconds / 60, cfg, label_names,
+                    device,
                 )
                 valid_out = (preds, targs)
                 score = selection_score(valid_metrics)
@@ -508,7 +516,8 @@ def run_finetune(cfg: Config, device: DeviceLike = "cuda", verbose=print):
             with profiling.span("pass", split="test", train=False) as ps:
                 _, test_preds, test_targs, test_loss = epoch_pass("test", False)
             test_metrics = _metrics_for(
-                "test", test_preds, test_targs, test_loss, ps.seconds / 60, cfg, label_names
+                "test", test_preds, test_targs, test_loss, ps.seconds / 60, cfg, label_names,
+                device,
             )
 
             tracker.evaluate(valid_metrics, test_metrics, epoch)
@@ -734,11 +743,12 @@ def run_joint(cfg: Config, splits: Optional[Dict[str, WindowDataset]] = None,
                 v_preds, v_targs, valid_loss = run_split("valid", train=False)
             # the valid metrics' time covers the train and valid passes
             valid_metrics = _metrics_for("valid", v_preds, v_targs, valid_loss,
-                                         (ps_train.seconds + ps.seconds) / 60, cfg, label_names)
+                                         (ps_train.seconds + ps.seconds) / 60, cfg, label_names,
+                                         device)
             with profiling.span("pass", split="test", train=False):
                 t_preds, t_targs, test_loss = run_split("test", train=False)
             test_metrics = _metrics_for("test", t_preds, t_targs, test_loss, 0.0, cfg,
-                                        label_names)
+                                        label_names, device)
             tracker.evaluate(valid_metrics, test_metrics, epoch)
             with profiling.span("log"):
                 # the train step makes no predictions: its line carries the loss only

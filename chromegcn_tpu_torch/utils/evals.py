@@ -3,9 +3,11 @@ chromegcn_tpu/utils/evals.py; the files it writes have the JAX package's
 names and formats).
 
 Mirrors the reference's eval stack (reference: utils/evals.py:26-300):
-- ``compute_metrics``: mAP + mean/median/var AUROC, AUPR, recall@50%FDR,
-  optional per-label-type (TFBS / histone-mark / DNase) splits keyed on
-  label-name substrings (reference: utils/evals.py:29-67).
+- ``compute_metrics``: mAP + mean/median/var AUROC, AUPR, recall@50%FDR
+  and the binarised ACC, HA and F1s, from one pass on the caller's device
+  (``metrics.label_scores``), optional per-label-type (TFBS /
+  histone-mark / DNase) splits keyed on label-name substrings (reference:
+  utils/evals.py:29-67).
 - ``BestTracker``: best-on-valid per metric and the test value at that
   epoch (reference: utils/evals.py:122-247).
 - ``EpochLogger``: `{train,valid,test}.log` CSV lines
@@ -20,6 +22,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from chromegcn_tpu_torch import DeviceLike
 from chromegcn_tpu_torch.utils import metrics, profiling
 
 
@@ -52,10 +55,13 @@ def compute_metrics(
     cell_type: str = "GM12878",
     per_label_type: bool = False,
     br_threshold: float = 0.5,
+    device: DeviceLike = "cpu",
 ) -> Dict[str, object]:
-    """Build the metrics dict (reference: utils/evals.py:26-120)."""
-    predictions = np.asarray(predictions, dtype=np.float64)
-    targets = np.asarray(targets, dtype=np.float64)
+    """Build the metrics dict (reference: utils/evals.py:26-120) from one
+    ``metrics.label_scores`` pass on ``device``; the summaries are taken on
+    the host from its per-label vectors."""
+    s = metrics.label_scores(targets, predictions, threshold=br_threshold, device=device)
+    scored = ~np.isnan(s.auc)  # labels with both classes
     out: Dict[str, object] = {}
 
     if per_label_type and label_names is not None:
@@ -63,20 +69,14 @@ def compute_metrics(
         for gname, idx in groups.items():
             if not idx:
                 continue
-            p, t = predictions[:, idx], targets[:, idx]
-            out[f"{gname}_meanAUC"] = metrics.auroc(t, p)[0]
-            # one shared PR-curve pass per group, same as the global metrics
-            (aupr_g, _, _, _), (fdr_g, _, _, _) = metrics.aupr_and_fdr(t, p)
-            out[f"{gname}_meanAUPR"] = aupr_g
-            out[f"{gname}_meanFDR"] = fdr_g
+            out[f"{gname}_meanAUC"] = metrics.summary(s.auc[idx][scored[idx]])[0]
+            out[f"{gname}_meanAUPR"] = metrics.summary(s.aupr[idx])[0]
+            out[f"{gname}_meanFDR"] = metrics.summary(s.fdr[idx])[0]
 
-    mean_auc, median_auc, _, all_auc = metrics.auroc(targets, predictions)
-    # one PR-curve pass feeds both AUPR and FDR (metrics.aupr_and_fdr)
-    (
-        (mean_aupr, median_aupr, _, all_aupr),
-        (mean_fdr, median_fdr, _, all_fdr),
-    ) = metrics.aupr_and_fdr(targets, predictions)
-    out["mAP"] = metrics.mean_average_precision(targets, predictions)
+    mean_auc, median_auc, _, all_auc = metrics.summary(s.auc[scored])
+    mean_aupr, median_aupr, _, all_aupr = metrics.summary(s.aupr)
+    mean_fdr, median_fdr, _, all_fdr = metrics.summary(s.fdr)
+    out["mAP"] = float(s.ap.mean())
     out["meanAUC"] = mean_auc
     out["medianAUC"] = median_auc
     out["allAUC"] = all_auc
@@ -87,12 +87,19 @@ def compute_metrics(
     out["medianFDR"] = median_fdr
     out["allFDR"] = all_fdr
 
-    binarized = (predictions >= br_threshold).astype(np.float64)
-    out["ACC"] = metrics.subset_accuracy(targets, binarized)
-    out["HA"] = 1.0 - metrics.hamming_loss(targets, binarized)
-    out["ebF1"] = metrics.example_f1_score(targets, binarized)
-    out["miF1"] = metrics.f1_score(targets, binarized, average="micro")
-    out["maF1"] = metrics.f1_score(targets, binarized, average="macro")
+    rows, labels = np.shape(predictions)
+    out["ACC"] = s.exact_rows / rows
+    out["HA"] = 1.0 - s.wrong / (rows * labels)
+    out["ebF1"] = s.example_f1
+    # micro and macro F1 of the binarised predictions (reference:
+    # utils/metrics.py:65-110)
+    tp, fp, fn = (c.astype(np.float64) for c in (s.tp, s.fp, s.fn))
+    denom = 2 * tp.sum() + fp.sum() + fn.sum()
+    out["miF1"] = float(2 * tp.sum() / denom) if denom > 0 else 0.0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        per = np.true_divide(2 * tp, 2 * tp + fp + fn)
+    per = per[np.isfinite(per)]
+    out["maF1"] = float(per.mean()) if per.size else 0.0
 
     out["loss"] = float(loss)
     out["time"] = float(elapsed)

@@ -1,7 +1,7 @@
 """Port parity: the analysis modules (ops/spmm.py:sddmm, analysis/saliency,
-utils/metrics.py:find_optimal_cutoff, pipeline/genome and variants,
-analysis/results, utils/summarize, analysis/plots and chord) against the
-JAX package's, on the CPU, from the same weights and inputs.
+utils/metrics.py's per-label metrics and find_optimal_cutoff, pipeline/genome
+and variants, analysis/results, utils/summarize, analysis/plots and chord)
+against the JAX package's, on the CPU, from the same weights and inputs.
 
 The GCN runs its products through the plain versions here (the BSR form's,
 and the COO path where the reference takes it); chip_smoke.py's phase 18
@@ -149,6 +149,27 @@ def test_roc_curve_matches_sklearn():
             for ours, ref in zip(tmetrics.roc_curve(t[:, i], p[:, i]),
                                  skm.roc_curve(t[:, i], p[:, i])):
                 np.testing.assert_array_equal(ours, ref)
+
+
+def _flat(result):
+    """A metric's result as a list: mAP is one float, a summary is (mean,
+    median, var, all), aupr_and_fdr two summaries."""
+    if isinstance(result, float):
+        return [result]
+    if isinstance(result[0], tuple):
+        return [v for summary in result for v in summary]
+    return list(result)
+
+
+@pytest.mark.parametrize("name", ["auroc", "aupr", "fdr", "aupr_and_fdr",
+                                  "mean_average_precision"])
+def test_label_metrics_match_jax(name):
+    t, p = _label_cases()
+    ours = _flat(getattr(tmetrics, name)(t, p))
+    ref = _flat(getattr(jmetrics, name)(t, p))
+    assert len(ours) == len(ref)
+    for a, b in zip(ours, ref):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-12, err_msg=name)
 
 
 def test_find_optimal_cutoff_matches_jax():

@@ -324,6 +324,12 @@ def test_run_finetune_records_every_epoch_and_its_passes(tmp_path, monkeypatch):
         assert [m.attrs["split"] for m in kids[e.id] if m.name == "metrics"] == [
             "train", "valid", "test"]
         passes += ps
+        # the runner hands compute_metrics its device; the span counts the
+        # world's labels and the column blocks that scored them
+        for m in kids[e.id]:
+            if m.name == "metrics":
+                assert m.attrs["device"] == CPU and m.attrs["labels"] == NTARGETS
+                assert m.attrs["blocks"] >= 1
         train_steps = [s for s in kids[ps[0].id] if s.name == "train_step"]
         assert len(train_steps) == len(SIZES["train"])
     # the valid loss and score improve from nothing in epoch 1: two snapshots
@@ -376,6 +382,10 @@ def test_trace_dir_writes_the_spans_and_a_cut_trace(tmp_path, monkeypatch, capsy
     assert [e["args"]["epoch"] for e in epochs] == [1, 2, 3]
     assert all(e["dur"] > 0 and not e["args"]["error"] for e in epochs)
     assert spans["spanTotals"]["epoch"]["count"] == 3
+    scored = [e["args"] for e in events if e["name"] == "metrics" and e["ph"] == "X"]
+    assert len(scored) == 9
+    assert all(a["device"] == CPU and a["labels"] == NTARGETS and a["blocks"] >= 1
+               for a in scored)
     with open(out / "trace.json") as f:
         trace = json.load(f)
     steps = [e for e in trace["traceEvents"]
