@@ -6,12 +6,17 @@
 - ``configs/<config>.json``: the configuration as it is run;
 - ``traffic/<traffic>.json``: the traffic's parameters, among them the
   ``loop`` (``loops/<loop>.py``) that drives the program with it;
+- ``loops/<loop>.py``: ``Session(cfg, traffic, seed, device)``, one run's
+  set-up, window and check; ``small(cfg, traffic)``, copies of both cut to
+  the size the CPU tests run (the widths kept); and ``TRAIN_STEP``, the
+  module and name of the program's function that one step runs, which the
+  tests break to see a run come out not correct;
 - ``metrics/<metric>.py``: a per-layer metric's reader, ``read(session)``,
   which returns nothing where it finds nothing to read;
 - ``kernel_groups/<group>.json``: a group of the breakdown's device time.
 
-A later cell, configuration, traffic, metric or kernel group is a new file
-and a new manifest entry; no file here changes.
+A later cell, configuration, traffic, loop, metric or kernel group is a new
+file and a new manifest entry; no file here or under ``tests/`` changes.
 """
 
 from __future__ import annotations
@@ -74,9 +79,13 @@ def reader(name: str):
     return module.read
 
 
+def loop_module(name: str):
+    """``loops/<name>.py``."""
+    return importlib.import_module(f"portbench.loops.{name}")
+
+
 def session_for(cfg: dict, traffic: dict, seed: int, device: torch.device):
-    loop = importlib.import_module(f"portbench.loops.{traffic['loop']}")
-    return loop.Session(cfg, traffic, seed, device)
+    return loop_module(traffic["loop"]).Session(cfg, traffic, seed, device)
 
 
 def forbidden_modules() -> list:

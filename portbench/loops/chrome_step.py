@@ -11,6 +11,7 @@ the host is the finetune cell's to measure.
 
 from __future__ import annotations
 
+import copy
 import os
 import tempfile
 import types
@@ -22,6 +23,16 @@ from portbench import flops
 from portbench import traffic as gen_traffic
 from portbench.loops import common
 from portbench.reference import gcn, train
+
+TRAIN_STEP = ("chromegcn_tpu_torch.train.finetune", "chrome_train_step")
+
+
+def small(cfg: dict, traffic: dict):
+    """The CPU tests' cut: a graph of 1,500 windows and 3,000 pairs; the
+    widths stay. Copies; the arguments are left as they were."""
+    cfg, traffic = copy.deepcopy(cfg), copy.deepcopy(traffic)
+    traffic["graph"].update(n_valid=1500, n_pairs=3000)
+    return cfg, traffic
 
 
 def runner_config(cfg: dict, root: str, **more):

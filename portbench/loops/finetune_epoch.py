@@ -14,6 +14,7 @@ reference follows).
 
 from __future__ import annotations
 
+import copy
 import os
 import re
 import tempfile
@@ -32,6 +33,15 @@ from portbench.reference import metrics as ref_metrics
 
 EPOCH_END = re.compile(r"^epoch (\d+):")
 BUCKET = 2048  # the runner pads each chromosome's rows to a multiple of this
+TRAIN_STEP = ("chromegcn_tpu_torch.train.finetune", "chrome_train_step")
+
+
+def small(cfg: dict, traffic: dict):
+    """The CPU tests' cut: splits of 600 / 300 / 300 windows; the widths
+    stay. Copies; the arguments are left as they were."""
+    cfg, traffic = copy.deepcopy(cfg), copy.deepcopy(traffic)
+    cfg["splits"] = {"train": [600], "valid": [300], "test": [300]}
+    return cfg, traffic
 
 
 class StopWindow(Exception):
@@ -52,23 +62,27 @@ class Session:
 
     def write_world(self, conf) -> None:
         """Each split's one chromosome, of the configuration's size: N(0, 1)
-        strand features and Bernoulli targets drawn on the card, contacts from
+        strand features and targets drawn on the card, contacts from
         make_hic_edges on the traffic's fixed graph seed (so every seed
-        has the same sizes), written where the finetune mode reads them."""
+        has the same sizes), written where the finetune mode reads them. The
+        targets follow the features by one ``LabelRule`` for every split,
+        drawn from the seed at the traffic's fixed ``label_scale``, so that
+        every seed's model learns alike."""
         from chromegcn_tpu_torch.data.artifact import save_graph_edges
         from chromegcn_tpu_torch.data.loader import ChromFeatures, save_chrom_features
 
         cfg, t = self.cfg, self.traffic
         draw = gen_traffic.device_generator(self.seed, self.device, 0)
         self.weights = common.make_weights(gcn.param_specs(cfg), draw, self.device)
+        rule = gen_traffic.LabelRule(cfg["nfeat"], cfg["nclass"], cfg["positive_rate"],
+                                     t["label_scale"], draw, self.device)
         os.makedirs(conf.stage1_run_dir, exist_ok=True)
         os.makedirs(conf.graph_root, exist_ok=True)
         self.data = {}
         for k, (split, chrom) in enumerate(t["chromosomes"].items()):
             (n,) = cfg["splits"][split]
             x = torch.randn(2, n, cfg["nfeat"], generator=draw, device=self.device)
-            y = torch.empty(n, cfg["nclass"], device=self.device).bernoulli_(
-                cfg["positive_rate"], generator=draw)
+            y = rule.targets(x[0], x[1], draw)
             feats = ChromFeatures(forward=x[0].cpu().numpy(), backward=x[1].cpu().numpy(),
                                   target=y.cpu().numpy())
             edges = gen_traffic.make_hic_edges(

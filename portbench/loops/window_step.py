@@ -5,6 +5,8 @@ cuDNN)."""
 
 from __future__ import annotations
 
+import copy
+
 import torch
 
 from portbench import flops
@@ -13,6 +15,16 @@ from portbench.loops import common
 from portbench.reference import expecto, train
 
 PREFIX = "model."  # NonStrandSpecific wraps the window model
+TRAIN_STEP = ("chromegcn_tpu_torch.train.pretrain", "window_train_step")
+
+
+def small(cfg: dict, traffic: dict):
+    """The CPU tests' cut: sequences of 400 bp in batches of 4, a pool of 3
+    batches; the widths stay. Copies; the arguments are left as they were."""
+    cfg, traffic = copy.deepcopy(cfg), copy.deepcopy(traffic)
+    cfg.update(seq_length=400, batch_size=4)
+    traffic["pool_batches"] = 3
+    return cfg, traffic
 
 
 class Session(common.StepSession):

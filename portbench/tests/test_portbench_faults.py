@@ -7,6 +7,7 @@ for a card skipped), once for each fault the cell can have:
   metric) altered where it is made.
 One card holds each cell, so no exchange between cards can be left out."""
 
+import importlib
 import time
 
 import pytest
@@ -15,9 +16,6 @@ import torch
 from portbench import harness
 
 CELLS = [w["name"] for w in harness.load_manifest()["workloads"]]
-STEP = {"chrome_step": ("finetune", "chrome_train_step"),
-        "window_step": ("pretrain", "window_train_step"),
-        "finetune_epoch": ("finetune", "chrome_train_step")}
 
 
 def run(cell, small_cell):
@@ -27,13 +25,11 @@ def run(cell, small_cell):
                             cfg=cfg, traffic=traffic)
 
 
-def loop_of(cell, small_cell):
-    return small_cell(cell)[1]["loop"]
-
-
-def train_module(name):
-    from chromegcn_tpu_torch.train import finetune, pretrain
-    return {"finetune": finetune, "pretrain": pretrain}[name]
+def train_step(cell, small_cell):
+    """(module, name) of the program's function that one step of the cell's
+    loop runs, as the loop's ``TRAIN_STEP`` names it."""
+    module_name, fn_name = harness.loop_module(small_cell(cell)[1]["loop"]).TRAIN_STEP
+    return importlib.import_module(module_name), fn_name
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -44,8 +40,7 @@ def test_a_sound_run_is_correct(cell, small_cell):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_step_that_leaves_the_state_unchanged_is_caught(cell, small_cell, monkeypatch):
-    module_name, fn_name = STEP[loop_of(cell, small_cell)]
-    module = train_module(module_name)
+    module, fn_name = train_step(cell, small_cell)
     step = getattr(module, fn_name)
 
     def unchanged(state, *a, **kw):
@@ -65,7 +60,7 @@ def test_a_step_that_leaves_the_state_unchanged_is_caught(cell, small_cell, monk
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_half_the_batch_left_out_is_caught(cell, small_cell, monkeypatch):
-    module = train_module(STEP[loop_of(cell, small_cell)][0])
+    module, _ = train_step(cell, small_cell)
     bce = module.bce_with_logits
 
     def half(logits, targets, row_mask=None, group=None):
@@ -92,7 +87,7 @@ def test_an_altered_metric_is_caught(small_cell, monkeypatch):
         return out
 
     monkeypatch.setattr(runner, "compute_metrics", altered)
-    result = run("gcn_finetune_epoch", small_cell)
+    result = run("gcn_finetune_rule_epoch", small_cell)
     assert not result["correct"]
     assert result["checks"]["metrics_gap"]["value"] == pytest.approx(1e-6, rel=1e-3)
 
@@ -109,6 +104,6 @@ def test_an_altered_prediction_is_caught(small_cell, monkeypatch):
         return loss, probs
 
     monkeypatch.setattr(finetune, "chrome_eval_step", altered)
-    result = run("gcn_finetune_epoch", small_cell)
+    result = run("gcn_finetune_rule_epoch", small_cell)
     assert not result["correct"]
     assert result["checks"]["pred_gap"]["value"] == pytest.approx(1e-3, rel=1e-2)

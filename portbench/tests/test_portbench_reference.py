@@ -86,3 +86,26 @@ def test_traffic_is_the_same_from_the_same_seed():
             assert torch.equal(x[k], y[k])
     assert not torch.equal(a[0]["x_f"], a[1]["x_f"])
     assert not a[0]["x_f"][50:].any() and not a[0]["targets"][50:].any()
+
+
+@pytest.mark.parametrize("scale", [1.0, 16.0])
+def test_the_label_rule_gives_the_rate_and_follows_the_features(scale):
+    """Every seed draws labels at the configuration's rate and of the same
+    strength: only the rule's direction and the draws change."""
+    b = gen_traffic.rule_offset(0.05, scale)
+    z = torch.randn(400_000, generator=torch.Generator().manual_seed(1), dtype=torch.float64)
+    assert float(torch.sigmoid(scale * z + b).mean()) == pytest.approx(0.05, abs=1e-3)
+    rates, hits = [], []
+    for seed in (7, 8):
+        gen = torch.Generator().manual_seed(seed)
+        rule = gen_traffic.LabelRule(32, 200, 0.05, scale, gen, CPU)
+        x = torch.randn(2, 4000, 32, generator=gen)
+        y = rule.targets(x[0], x[1], gen)
+        assert set(y.unique().tolist()) <= {0.0, 1.0}
+        z = (x[0] + x[1]) @ rule.u
+        assert float(z.std()) == pytest.approx(1.0, abs=0.05)
+        rates.append(float(y.mean()))
+        # the positives lie where the projection is high
+        hits.append(float(z[y == 1].mean() - z[y == 0].mean()))
+    assert rates == pytest.approx([0.05, 0.05], abs=0.003)
+    assert min(hits) > 0.5 and abs(hits[0] - hits[1]) < 0.1 * max(hits)

@@ -110,6 +110,37 @@ def node_inputs(n_valid: int, n_pad: int, d: int, n_labels: int, rate: float,
     return sets
 
 
+def rule_offset(rate: float, scale: float) -> float:
+    """The offset b with E[sigmoid(scale z + b)] = ``rate`` for z ~ N(0, 1),
+    by Newton's method on Gauss-Hermite quadrature: the same for every
+    seed."""
+    z, w = np.polynomial.hermite_e.hermegauss(200)
+    w = w / w.sum()
+    b = float(np.log(rate / (1.0 - rate)))
+    for _ in range(100):
+        p = 1.0 / (1.0 + np.exp(-(scale * z + b)))
+        b -= float((w * p).sum() - rate) / max(float((w * p * (1.0 - p)).sum()), 1e-12)
+    return b
+
+
+class LabelRule:
+    """Targets that follow the features: label j of a window is
+    Bernoulli(sigmoid(scale z_j + b)), z_j = (x_f + x_r) u_j / sqrt(2 d) with
+    u ~ N(0, 1) drawn once for every split, so that z_j ~ N(0, 1) and each
+    label is positive at ``rate``. A model trained on one split learns what
+    holds on the others."""
+
+    def __init__(self, d: int, n_labels: int, rate: float, scale: float,
+                 gen: torch.Generator, device):
+        self.u = torch.randn(d, n_labels, generator=gen, device=device) / (2 * d) ** 0.5
+        self.scale, self.offset = scale, rule_offset(rate, scale)
+
+    def targets(self, x_f: torch.Tensor, x_r: torch.Tensor,
+                gen: torch.Generator) -> torch.Tensor:
+        z = (x_f + x_r) @ self.u
+        return torch.bernoulli(torch.sigmoid(self.scale * z + self.offset), generator=gen)
+
+
 def window_batches(n_batches: int, batch: int, seq_length: int, n_labels: int, rate: float,
                    bases: List[int], gen: torch.Generator, device) -> List[Dict[str, torch.Tensor]]:
     """``n_batches`` batches of uniform random sequences over the token ids
