@@ -33,6 +33,7 @@ mode. Convolutions stay off cuDNN.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -44,6 +45,18 @@ from chromegcn_tpu_torch.ops.sparse import SparseGraph
 from chromegcn_tpu_torch.ops.spmm import spmm
 from chromegcn_tpu_torch.ops.spmm_bsr import BSROperator
 from chromegcn_tpu_torch.parallel.mesh import all_gather_rows, group_rank
+from chromegcn_tpu_torch.utils import profiling
+
+# the longest sequence cuDNN's RNN takes on the H100 (cuDNN 9 with torch
+# 2.11; longer ones fail with CUDNN_STATUS_NOT_SUPPORTED): ``lstm_forward``
+# runs a longer one in segments
+CUDNN_MAX_STEPS = 65_535
+
+# ``lstm_forward`` calls (sweeps: an LSTM module, every layer and direction
+# of it, over a whole batch of sequences) and the positions they read
+# (length x batch) in this process; the ``train_step`` spans record their
+# growth (``profiling.span``'s counters)
+LSTM_COUNTS = {"lstm_sweeps": 0, "lstm_positions": 0}
 
 
 def _dropout(
@@ -107,6 +120,38 @@ def _is_flat(lstm: nn.LSTM) -> bool:
     return len({p.untyped_storage().data_ptr() for p in lstm.parameters()}) == 1
 
 
+def lstm_segments(lstm: nn.LSTM, x: torch.Tensor, most: int) -> torch.Tensor:
+    """``lstm(x)[0]`` for a single-layer, batch-first LSTM, each direction
+    run over consecutive segments of at most ``most`` positions (the reverse
+    direction over the flipped sequence), its (h, c) carried from segment to
+    segment: the same recurrence, in calls no longer than ``most``. On the
+    H100 two one-direction calls take as long as one bidirectional call
+    (117.8 and 119.2 ms forward and backward at 49,152 positions), so the
+    directions run one after the other."""
+    if lstm.num_layers != 1 or not lstm.batch_first or lstm.proj_size:
+        raise ValueError("lstm_segments runs single-layer, batch-first LSTMs")
+    batch, length = x.shape[:2]
+    n = -(-length // most)
+    bounds = [length * k // n for k in range(n + 1)]
+    zeros = x.new_zeros((1, batch, lstm.hidden_size))
+    outs = []
+    with warnings.catch_warnings():
+        # a direction's weights are views of the module's one buffer, which
+        # cuDNN copies into its layout at each call (a few hundred kB)
+        warnings.filterwarnings("ignore", message="RNN module weights are not part")
+        for d, names in enumerate(lstm._all_weights):
+            params = [getattr(lstm, name) for name in names]
+            seq, state, parts = (x.flip(1) if d else x), (zeros, zeros), []
+            for a, b in zip(bounds, bounds[1:]):
+                out, h, c = torch.lstm(seq[:, a:b].contiguous(), state, params, lstm.bias, 1,
+                                       0.0, lstm.training, False, True)
+                parts.append(out)
+                state = (h, c)
+            y = torch.cat(parts, 1)
+            outs.append(y.flip(1) if d else y)
+    return torch.cat(outs, -1)
+
+
 def lstm_forward(lstm: nn.LSTM, x: torch.Tensor) -> torch.Tensor:
     """``lstm(x)``'s output sequence.
 
@@ -115,21 +160,33 @@ def lstm_forward(lstm: nn.LSTM, x: torch.Tensor) -> torch.Tensor:
     forward saved), with TF32 as the process has it. cuDNN's backward needs
     its training-mode forward, so when autograd records an LSTM in eval
     mode, the call runs in training mode with the inter-layer dropout off:
-    the outputs are eval mode's."""
-    if x.device.type != "cuda":
-        return lstm(x)[0]
-    cudnn = torch.backends.cudnn
-    saved = (cudnn.enabled, lstm.training, lstm.dropout)
-    try:
-        cudnn.enabled = True
-        if not _is_flat(lstm):
-            lstm.flatten_parameters()
-        if not lstm.training and torch.is_grad_enabled():
-            lstm.training, lstm.dropout = True, 0.0
-        return lstm(x)[0]
-    finally:
-        cudnn.enabled = saved[0]
-        lstm.training, lstm.dropout = saved[1], saved[2]
+    the outputs are eval mode's. A sequence longer than cuDNN takes
+    (``CUDNN_MAX_STEPS``) runs in segments (``lstm_segments``).
+
+    Each call is a span ``lstm`` (attributes ``positions``, the sequence
+    length, ``batch`` and ``directions``) and counts one sweep in
+    ``LSTM_COUNTS``."""
+    batch, length = x.shape[:2]  # every LSTM of the port is batch-first
+    LSTM_COUNTS["lstm_sweeps"] += 1
+    LSTM_COUNTS["lstm_positions"] += length * batch
+    with profiling.span("lstm", positions=length, batch=batch,
+                        directions=2 if lstm.bidirectional else 1):
+        if x.device.type != "cuda":
+            return lstm(x)[0]
+        cudnn = torch.backends.cudnn
+        saved = (cudnn.enabled, lstm.training, lstm.dropout)
+        try:
+            cudnn.enabled = True
+            if not _is_flat(lstm):
+                lstm.flatten_parameters()
+            if not lstm.training and torch.is_grad_enabled():
+                lstm.training, lstm.dropout = True, 0.0
+            if length > CUDNN_MAX_STEPS:
+                return lstm_segments(lstm, x, CUDNN_MAX_STEPS)
+            return lstm(x)[0]
+        finally:
+            cudnn.enabled = saved[0]
+            lstm.training, lstm.dropout = saved[1], saved[2]
 
 
 class GraphConvolution(nn.Module):

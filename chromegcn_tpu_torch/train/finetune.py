@@ -23,6 +23,7 @@ and cuDNN (``torch.backends.cuda.matmul.allow_tf32`` and
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -32,6 +33,7 @@ from torch import nn
 
 from chromegcn_tpu_torch import DeviceLike, resolve_device
 from chromegcn_tpu_torch.data.loader import ChromFeatures
+from chromegcn_tpu_torch.models.chrome import LSTM_COUNTS
 from chromegcn_tpu_torch.ops import _build
 from chromegcn_tpu_torch.ops.sparse import SparseGraph
 from chromegcn_tpu_torch.parallel.mesh import all_reduce_grads, gather_rows
@@ -121,16 +123,19 @@ def chrome_train_step(
 
     Updates the state's model and optimizer in place. Dropout masks come
     from ``generator`` (on the inputs' device). Spans (utils/profiling.py):
-    ``train_step`` with the kernel launches it made (``_build.LAUNCHES``),
-    over ``optimizer`` (zero_grad, then the step), ``forward`` (both
-    strands, and ``loss``: the head and the loss), ``backward``, on a
-    sharded graph ``grad_allreduce``, and a second ``loss`` (the
-    probabilities, after the step)."""
+    ``train_step`` with the kernel launches it made (``_build.LAUNCHES``)
+    and the LSTM sweeps and positions it ran (``chrome.LSTM_COUNTS``), over
+    ``optimizer`` (zero_grad, then the step), ``forward`` (both strands, and
+    ``loss``: the head and the loss), ``backward``, on a sharded graph
+    ``grad_allreduce``, and a second ``loss`` (the probabilities, after the
+    step)."""
     device = resolve_device(device)
     x_f, x_r, targets = _on(device, x_f, x_r, targets)
     model, opt = state.model, state.optimizer
     group = getattr(graph, "group", None)
-    with profiling.span("train_step", counters=_build.LAUNCHES):
+    # LSTM_COUNTS first: LAUNCHES, a Counter, answers 0 for keys it lacks
+    with profiling.span("train_step",
+                        counters=collections.ChainMap(LSTM_COUNTS, _build.LAUNCHES)):
         with profiling.span("optimizer"):
             opt.zero_grad(set_to_none=True)
         with profiling.span("forward"):

@@ -332,11 +332,13 @@ def build_split_graphs(
     form, the hybrid one, or for 'auto' whichever the card's cost model
     finds cheaper. ``n_shards`` > 1 pads to lcm(2048, 128 n_shards), so
     each shard's rows are a multiple of the 128-row tile, and attaches no
-    flat form: ``shard_split_graphs`` builds the per-shard ones. Spans: a
-    ``graph_build`` over a ``graph`` (the adjacency) and an ``operator``
-    (the host operator build and the cost model) for each chromosome."""
+    flat form: ``shard_split_graphs`` builds the per-shard ones. ChromeRNN
+    (``-chrome_model rnn``) reads only the graph's node mask, so its graphs
+    get no operator. Spans: a ``graph_build`` over a ``graph`` (the
+    adjacency) and an ``operator`` (the host operator build and the cost
+    model) for each chromosome."""
     device = resolve_device(device)
-    use_bsr = _use_bsr(cfg, device) and n_shards <= 1
+    use_bsr = _use_bsr(cfg, device) and n_shards <= 1 and cfg.chrome_model != "rnn"
     bucket = 2048 if n_shards <= 1 else int(np.lcm(2048, 128 * n_shards))
     graphs = {}
     with profiling.span("graph_build", split=split):

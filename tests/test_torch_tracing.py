@@ -17,7 +17,8 @@ from chromegcn_tpu_torch import main as tmain
 from chromegcn_tpu_torch.config import Config
 from chromegcn_tpu_torch.data import artifact
 from chromegcn_tpu_torch.data.constants import SRC_VOCAB
-from chromegcn_tpu_torch.data.loader import ChromFeatures, save_chrom_features
+from chromegcn_tpu_torch.data.loader import (ChromFeatures, load_chrom_features,
+                                             save_chrom_features)
 from chromegcn_tpu_torch.data.synthetic import make_hic_edges, make_window_dataset
 from chromegcn_tpu_torch.models.chrome import make_chrome_model
 from chromegcn_tpu_torch.models.window import make_window_model
@@ -255,6 +256,41 @@ def test_a_train_step_records_its_phases(step):
     assert [s.name for s in done if s.parent == 0] == ["train_step", "eval_step"]
 
 
+def _rnn_step():
+    """One ChromeRNN train step (2 bidirectional layers) over a chromosome
+    of 200 windows padded to 256."""
+    model = make_chrome_model("rnn", nclass=NTARGETS, dropout=0.2, layers=2, nfeat=D)
+    state = ft.create_chrome_state(model, "sgd", 0.1, device=CPU)
+    graph = build_chrom_graph("none", n_valid=200, n_pad=256, device=CPU)
+    gen = torch.Generator().manual_seed(0)
+    x_f, x_r = torch.randn(256, D, generator=gen), torch.randn(256, D, generator=gen)
+    targets = (torch.rand(256, NTARGETS, generator=gen) < 0.2).float()
+    ft.chrome_train_step(state, x_f, x_r, graph, targets, gen, device=CPU)
+
+
+def test_a_chromernn_step_records_its_lstm_sweeps():
+    """Each ``lstm_forward`` call is an ``lstm`` span under ``forward``, and
+    ``train_step`` carries the sweeps and positions: 2 strands x 2 layers,
+    each over the 256 padded rows."""
+    _rnn_step()
+    done = profiling.spans()
+    kids = _children(done)
+    (train,) = [s for s in done if s.name == "train_step"]
+    forward = next(s for s in kids[train.id] if s.name == "forward")
+    assert [s.name for s in kids[forward.id]] == ["lstm"] * 4 + ["loss"]
+    assert all(s.attrs == {"positions": 256, "batch": 1, "directions": 2}
+               for s in kids[forward.id][:4])
+    assert train.attrs["lstm_sweeps"] == 4 and train.attrs["lstm_positions"] == 4 * 256
+
+
+def test_a_chromegcn_step_records_no_lstm():
+    _gcn_step()
+    done = profiling.spans()
+    assert not [s for s in done if s.name == "lstm"]
+    (train,) = [s for s in done if s.name == "train_step"]
+    assert train.attrs.get("lstm_sweeps", 0) == 0 and train.attrs.get("lstm_positions", 0) == 0
+
+
 def _finetune_world(root, **more) -> Config:
     """Saved CNN features and Hi-C edges of ``SIZES``, where the finetune
     mode reads them."""
@@ -288,6 +324,25 @@ def _window_world(root, **more) -> Config:
         for i, (split, chrom) in enumerate((("train", "chr2"), ("valid", "chr3"),
                                             ("test", "chr1")))})
     return cfg
+
+
+@pytest.mark.parametrize("model", ["gcn", "rnn"])
+def test_chromernn_graphs_carry_no_operator(tmp_path, model):
+    """ChromeRNN reads only the node mask, so its graphs get no operator;
+    the GCN's get the form ``-spmm_form`` names, as before."""
+    cfg = _finetune_world(tmp_path, spmm_impl="pallas", chrome_model=model)
+    feats = load_chrom_features(cfg.feature_path("train"))
+    lines = []
+    graphs = runner.build_split_graphs(cfg, feats, "train", CPU, verbose=lines.append)
+    assert sorted(graphs) == sorted(SIZES["train"])
+    for chrom, g in graphs.items():
+        assert g.n_nodes == ft.bucket_nodes(SIZES["train"][chrom])
+        if model == "rnn":
+            assert g.bsr is None
+        else:
+            want = runner.attach_auto(g.replace(bsr=None), device=CPU).bsr
+            assert g.bsr is not None and type(g.bsr) is type(want)
+    assert bool(lines) == (model == "gcn")
 
 
 @contextlib.contextmanager
