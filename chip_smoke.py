@@ -29,7 +29,13 @@ per phase:
    classes, 2 layers, 2 strands, SGD lr 0.25): one kernel-path train step
    against one step of the plain COO path from the same weights, then
    5 train steps with dropout 0.2 and one eval step, counting kernel
-   launches (8 B1 per train step, 4 per eval step);
+   launches (8 B1 per train step, 4 per eval step; the loss's 2 BCE sum
+   launches a step and 1 BCE gradient a train step); then the BCE kernels
+   alone at bench and full chr1 size (249,856 x 919), the padded tail
+   masked, against the plain formula (the sum in float64, the gradient's
+   closed form under a cotangent other than 1), and their CUDA-event ms at
+   full chr1 beside their bounds, the plain formula with autograd and the
+   library's binary_cross_entropy_with_logits;
 6. kernels B2 (gcn_fused) and B3 (gcn_fused_bwd), row gathers over the
    edge form with a 3xTF32 tensor-core epilogue, against their plain
    versions: the bench graph at d 128, f32 and bf16, the hub graph, d 192
@@ -194,7 +200,7 @@ TRAIN_STEPS = 5
 CLI_SPLITS = {"train": ("chr1", N_VALID, N_PAIRS, 0), "valid": ("chr2", 10_000, 50_000, 1),
               "test": ("chr3", 10_000, 50_000, 2)}
 CLI_EPOCHS = 2
-KERNELS = ("bsr_spmm", "gcn_fused", "gcn_fused_bwd")
+KERNELS = ("bsr_spmm", "gcn_fused", "gcn_fused_bwd", "bce_fused")
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -268,6 +274,16 @@ PROFILE_GROUPS = (
 def require(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def gcn_launches():
+    """The GCN kernels' launches (B1, B2, B3) in ``_build.LAUNCHES``: every
+    loss on the card also launches the BCE kernels (``bce_sum``,
+    ``bce_sum_bwd``), which phase 5 counts and checks."""
+    from chromegcn_tpu_torch.ops import _build
+
+    return {k: v for k, v in _build.LAUNCHES.items()
+            if k in ("bsr_spmm", "gcn_fused_fwd", "gcn_fused_bwd")}
 
 
 def log(*parts):
@@ -845,7 +861,7 @@ def rnn_phase(args, smi, graph, x_f, x_r, targets):
     t_eval = step_ms(lambda: chrome_eval_step(st, xf, xr, g, tg))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    require(not _build.LAUNCHES, f"ChromeRNN launched a GCN kernel: {dict(_build.LAUNCHES)}")
+    require(not gcn_launches(), f"ChromeRNN launched a GCN kernel: {gcn_launches()}")
     loss = chrome_eval_step(st, xf, xr, g, tg)[0].item()
     require(np.isfinite(loss), "non-finite ChromeRNN loss")
     # each strand's forward runs LAYERS x 2 directions of N_PAD dependent steps
@@ -976,13 +992,13 @@ def joint_phase(args, smi, comp):
         held = torch.cuda.memory_allocated()
         _build.LAUNCHES.clear()
         t_train = step_ms(train, warmup=0)
-        train_counts = dict(_build.LAUNCHES)
+        train_counts = gcn_launches()
         peak = torch.cuda.max_memory_allocated()
         evaluate()
         torch.cuda.synchronize()
         _build.LAUNCHES.clear()
         t_eval = step_ms(evaluate, warmup=0)
-        eval_counts = dict(_build.LAUNCHES)
+        eval_counts = gcn_launches()
         loss, probs = evaluate()
         require(np.isfinite(loss.item()) and probs.shape == (JOINT_N, NCLASS)
                 and bool(torch.isfinite(probs).all()), "non-finite joint eval")
@@ -1026,6 +1042,108 @@ def launches_per_product(op):
         require(len(op.fwd) == len(op.bwd), "panels: the two directions differ in count")
         return len(op.fwd)
     return 1 + (op.dense is not None)
+
+
+def bce_phase(smi, launches):
+    """The BCE kernels (``bce_sum``, ``bce_sum_bwd``) alone at the main
+    path's shapes, bench (N_PAD 50,176) and full chr1 (249,856), 919 labels,
+    the padded tail masked: the sum within rel 1e-6 of the plain formula in
+    float64 and the same bits over 3 calls; the gradient under a cotangent
+    of -0.37 of the mean's within 1e-6 of |g| of the plain closed form.
+    Then at full chr1, CUDA events around the loss and its gradient through
+    the kernels, the plain formula under autograd and the library's
+    binary_cross_entropy_with_logits (row weights, a sum), each kernel
+    alone, and their bounds. Returns the kernels line's row; ``launches``
+    are phase 5's."""
+    import torch.nn.functional as F
+
+    from chromegcn_tpu_torch.ops.bce_fused import (
+        BCESum, bce_grad_plain, bce_sum, bce_sum_bwd, bce_sum_plain,
+    )
+
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    rel_errs, grad_errs = [], []
+    for n_pad, n_valid in ((N_PAD, N_VALID), (FULL_PAD, FULL_VALID)):
+        x = 3 * torch.randn(n_pad, NCLASS, device=cuda, generator=gen)
+        x.view(-1)[::97] = 0.0
+        x.view(-1)[1::89] = 60.0
+        x.view(-1)[2::83] = -60.0
+        z = (torch.rand(n_pad, NCLASS, device=cuda, generator=gen) < 0.05).float()
+        m = (torch.arange(n_pad, device=cuda) < n_valid).float()
+        sums = [bce_sum(x, z, m) for _ in range(3)]
+        same_bits = all(torch.equal(v, sums[0]) for v in sums)
+        ref = bce_sum_plain(x.double(), z.double(), m.double()).item()
+        rel = abs(sums[0].item() - ref) / abs(ref)
+        g = torch.tensor(-0.37 / (n_valid * NCLASS), device=cuda)
+        dx = bce_sum_bwd(x, z, m, g)
+        err = (dx - bce_grad_plain(x, z, m, g)).abs().max().item()
+        tail = bool(dx[n_valid:].any())
+        del dx
+        log(f"  BCE kernels at {n_pad} x {NCLASS}, {n_valid} rows valid: sum rel diff {rel:.2e} "
+            f"from float64 (tol 1e-6), 3 calls bit-equal {same_bits}; gradient max_abs_err "
+            f"{err:.3e} ({err / abs(g.item()):.2e} of |g|, tol 1e-6)")
+        require(same_bits, "the BCE sum does not repeat bit for bit")
+        require(rel <= 1e-6, f"the BCE sum at {n_pad} rows is {rel:.2e} from float64")
+        require(err <= 1e-6 * abs(g.item()),
+                f"the BCE gradient at {n_pad} rows is {err:.3e} from the closed form")
+        require(not tail, "the BCE gradient wrote into the masked rows")
+        rel_errs.append(rel)
+        grad_errs.append(err)
+
+    # timed at the loop's last shape, full chr1
+    def with_grad(loss):
+        def run():
+            xg = x.detach().requires_grad_(True)
+            loss(xg).backward(g)
+        return run
+
+    lib_value = F.binary_cross_entropy_with_logits(x, z, weight=m[:, None], reduction="sum")
+    log(f"  library binary_cross_entropy_with_logits (weight the row mask, sum) at full chr1: "
+        f"rel diff {abs(lib_value.item() - ref) / abs(ref):.2e} from float64 (a record)")
+    fns = {
+        "kernels": with_grad(lambda xg: BCESum.apply(xg, z, m)),
+        "plain": with_grad(lambda xg: bce_sum_plain(xg, z, m)),
+        "library": with_grad(lambda xg: F.binary_cross_entropy_with_logits(
+            xg, z, weight=m[:, None], reduction="sum")),
+        "sum": lambda: bce_sum(x, z, m),
+        "grad": lambda: bce_sum_bwd(x, z, m, g),
+    }
+    t = cuda_ms(fns)
+    ms = {k: statistics.median(v) for k, v in t.items()}
+    tensor_ms = x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    bounds = {"sum": 2 * tensor_ms, "grad": 3 * tensor_ms, "kernels": 5 * tensor_ms}
+    log(f"  BCE loss and gradient at {FULL_PAD} x {NCLASS} ({smi}), CUDA-event ms a call "
+        f"(median (min-max) of 5 loops of 20 in turns): kernels {spread(t['kernels'])} "
+        f"(bound {bounds['kernels']:.4f}, x and z read twice and dx written once at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); plain formula with autograd {spread(t['plain'])}; "
+        f"library binary_cross_entropy_with_logits {spread(t['library'])}; alone: sum "
+        f"{spread(t['sum'])} (bound {bounds['sum']:.4f}), gradient {spread(t['grad'])} "
+        f"(bound {bounds['grad']:.4f})")
+    return {
+        "name": "bce_fused",
+        "route": "cuda",
+        "source": "chromegcn_tpu_torch/csrc/bce_fused.cu",
+        "replaces": "chromegcn_tpu/train/loss.py:17",
+        # phase 5: the unfused main path's train and eval steps
+        "launches": launches["bce_sum"] + launches["bce_sum_bwd"],
+        "launches_sum": launches["bce_sum"],
+        "launches_grad": launches["bce_sum_bwd"],
+        "max_abs_err": max(grad_errs),
+        "sum_rel_err": max(rel_errs),
+        "shape": [FULL_PAD, NCLASS],
+        # the loss and its gradient at full chr1, CUDA events
+        "ms": ms["kernels"],
+        "event_ms": ms["kernels"],
+        "ms_sum": ms["sum"],
+        "ms_grad": ms["grad"],
+        "plain_ms": ms["plain"],
+        "bound_ms": bounds["kernels"],
+        "bound_ms_sum": bounds["sum"],
+        "bound_ms_grad": bounds["grad"],
+        "bound_by": "HBM bytes",
+        "library_ms": ms["library"],
+    }
 
 
 def fullscale_phase(args, smi, bench_graph, bench_device_ms):
@@ -1160,7 +1278,7 @@ def fullscale_phase(args, smi, bench_graph, bench_device_ms):
             _build.LAUNCHES.clear()
             out = step()
             torch.cuda.synchronize()
-            counts[name, kind] = dict(_build.LAUNCHES)
+            counts[name, kind] = gcn_launches()
             peaks[name, kind] = (torch.cuda.max_memory_allocated() - held) / 2**30
             require(all(bool(torch.isfinite(t).all()) for t in out[-2:]),
                     f"{name} {kind} step: non-finite loss or probs")
@@ -1563,7 +1681,7 @@ def parallel_phase(args, smi, graph, flat):
         _build.LAUNCHES.clear()
         _, loss_s, _ = chrome_train_step(state_s, x_f, x_r, sg, targets)
         torch.cuda.synchronize()
-        launches[tag] = dict(_build.LAUNCHES)
+        launches[tag] = gcn_launches()
         _, loss_f, _ = chrome_train_step(state_f, x_f, x_r, g_flat, targets)
         rel = abs(loss_s.item() - loss_f.item()) / abs(loss_f.item())
         log(f"  train step, dropout 0, same weights: loss sharded {loss_s.item():.8f} flat "
@@ -1637,7 +1755,7 @@ def parallel_phase(args, smi, graph, flat):
         _build.LAUNCHES.clear()
         _, loss_n, probs_n = chrome_train_step(state_n, x_f, x_r, sg1, targets)
         torch.cuda.synchronize()
-        launches["nccl"] = dict(_build.LAUNCHES)
+        launches["nccl"] = gcn_launches()
         _, loss_f, probs_f = chrome_train_step(state_f, x_f, x_r, g_flat, targets)
         rel = abs(loss_n.item() - loss_f.item()) / abs(loss_f.item())
         log(f"[19 parallel, one NCCL rank] {smi}; distributed mode over a 1-rank nccl group "
@@ -1841,7 +1959,7 @@ def ingest_phase(args, smi, here):
             _build.LAUNCHES.clear()
             res = step()
             torch.cuda.synchronize()
-            counts[kind] = dict(_build.LAUNCHES)
+            counts[kind] = gcn_launches()
             peaks[kind] = (torch.cuda.max_memory_allocated() - held) / 2**30
             require(all(bool(torch.isfinite(t).all()) for t in res[-2:]),
                     f"ingested chr1 {kind} step: non-finite loss or probs")
@@ -1900,7 +2018,7 @@ def ingest_phase(args, smi, here):
                             ("finetune", ["-load_pretrained", "-epochs", "1"])):
             _build.LAUNCHES.clear()
             out_lines, secs_mode = run_cli(cli_main, base + extra)
-            chain_counts[mode] = dict(_build.LAUNCHES)
+            chain_counts[mode] = gcn_launches()
             cfg = cli_config(base + extra)
             if mode == "save_feats":
                 for split, chroms in (("train", ["chr2", "chr4"]), ("valid", ["chr3"]),
@@ -2172,6 +2290,10 @@ def main():
     require(eval_launches == 4, "expected 4 B1 launches per eval step")
     require(not launches.get("gcn_fused_fwd") and not launches.get("gcn_fused_bwd"),
             "the unfused path launched a fused kernel")
+    require(launches["bce_sum"] == 2 * (TRAIN_STEPS + 1)
+            and launches["bce_sum_bwd"] == TRAIN_STEPS,
+            f"expected 2 BCE sum launches a step and 1 BCE gradient a train step: {launches}")
+    bce_row = bce_phase(smi, launches)
 
     # ---- 6. B2 and B3 against their plain versions ----
     log("[6 B2/B3 vs plain] bench graph d=128 (f32, bf16); the hub graph, d=192 and tile "
@@ -2300,11 +2422,11 @@ def main():
     losses = [chrome_train_step(state_fused, x_f, x_r, graph_bsr, targets, gen_step)[1]
               for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
-    train_counts = dict(_build.LAUNCHES)
+    train_counts = gcn_launches()
     _build.LAUNCHES.clear()
     eval_loss, eval_probs = chrome_eval_step(state_fused, x_f, x_r, graph_bsr, targets)
     torch.cuda.synchronize()
-    eval_counts = dict(_build.LAUNCHES)
+    eval_counts = gcn_launches()
     losses = [l.item() for l in losses]
     log(f"  {TRAIN_STEPS} train steps (dropout 0.2) losses {['%.6f' % l for l in losses]}; "
         f"eval loss {eval_loss.item():.6f}")
@@ -2335,7 +2457,7 @@ def main():
         cli_main(argv)
         torch.cuda.synchronize()
         t_cli = time.perf_counter() - t0
-        cli_counts = dict(_build.LAUNCHES)
+        cli_counts = gcn_launches()
         logs = {}
         for split in ("train", "valid", "test"):
             with open(os.path.join(cli_cfg.run_dir, f"{split}.log")) as f:
@@ -2671,7 +2793,7 @@ def main():
         for mode, extra in modes.items():
             _build.LAUNCHES.clear()
             out, secs = run_cli(cli_main, expecto + extra)
-            pipe_counts[mode] = dict(_build.LAUNCHES)
+            pipe_counts[mode] = gcn_launches()
             log(f"  expecto {' '.join(extra)}: {secs:.1f} s; launches {pipe_counts[mode]}")
             for line in out:
                 if "warm-started" in line or "restored" in line or "epoch" in line:
@@ -2723,7 +2845,7 @@ def main():
                  "joint: warm-started CNN + GCN head from pretrain checkpoint")):
             _build.LAUNCHES.clear()
             out, secs = run_cli(cli_main, expecto + extra)
-            pipe_counts[mode] = dict(_build.LAUNCHES)
+            pipe_counts[mode] = gcn_launches()
             run_dir = cli_config(expecto + extra).run_dir + (".joint" if mode == "joint" else "")
             logs = read_logs(run_dir)
             log(f"  expecto {' '.join(extra)}: {secs:.1f} s; launches {pipe_counts[mode]}; "
@@ -2742,7 +2864,7 @@ def main():
         extra = ["-load_pretrained", "-spmm_form", "hybrid", "-epochs", "1"]
         _build.LAUNCHES.clear()
         out, secs = run_cli(cli_main, expecto + extra)
-        pipe_counts["hybrid"] = dict(_build.LAUNCHES)
+        pipe_counts["hybrid"] = gcn_launches()
         cfg_h = cli_config(expecto + extra)
         logs = read_logs(cfg_h.run_dir)
         per_product = {}
@@ -2861,7 +2983,7 @@ def main():
         ("gcn_fused_fwd", "chromegcn_tpu_torch/csrc/gcn_fused.cu",
          "chromegcn_tpu/ops/gcn_fused.py:85"),
         ("gcn_fused_bwd", "chromegcn_tpu_torch/csrc/gcn_fused_bwd.cu",
-         "chromegcn_tpu/ops/gcn_fused.py:206"))]
+         "chromegcn_tpu/ops/gcn_fused.py:206"))] + [bce_row]
     log(f"[20 done] in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -5,7 +5,11 @@ With a process group (each rank holding its own rows) the masked sum and
 the count are all-reduced over it, so every rank holds the global mean. Its
 backward passes the cotangent through: every rank differentiates the same
 loss from 1, so each gets its own rows' part of the gradient, and the steps
-sum the parameters' gradients over the group (``parallel/mesh.py``)."""
+sum the parameters' gradients over the group (``parallel/mesh.py``).
+
+The masked sum is ``ops/bce_fused.py:masked_bce_sum``: two hand-written
+kernels for f32 logits on the card, the plain torch formula on the CPU and
+in float64."""
 
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from chromegcn_tpu_torch.ops.bce_fused import masked_bce_sum
 from chromegcn_tpu_torch.parallel.mesh import reduce_replicated
 
 
@@ -24,7 +29,7 @@ def bce_with_logits(
 ) -> torch.Tensor:
     """Mean BCE-with-logits over valid rows, in the stable form
     max(x,0) - x*z + log1p(exp(-|x|)), in f32 (or float64 for float64
-    logits).
+    logits); the targets are converted to that dtype, once.
 
     Args:
       logits: (N, L) raw scores.
@@ -34,10 +39,9 @@ def bce_with_logits(
     """
     x = logits.to(torch.promote_types(logits.dtype, torch.float32))
     z = targets.to(x.dtype)
-    per_elem = x.clamp(min=0.0) - x * z + torch.log1p(torch.exp(-x.abs()))
     if row_mask is None:
-        row_mask = torch.ones(per_elem.shape[0], dtype=torch.bool, device=per_elem.device)
-    m = row_mask.to(x.dtype)[:, None]
+        row_mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    m = row_mask.to(x.dtype)
     # the masked sum and the count, summed over the group's ranks if any
-    num, count = reduce_replicated(torch.stack([(per_elem * m).sum(), m.sum()]), group)
-    return num / (count * per_elem.shape[1]).clamp(min=1.0)
+    num, count = reduce_replicated(torch.stack([masked_bce_sum(x, z, m), m.sum()]), group)
+    return num / (count * x.shape[1]).clamp(min=1.0)

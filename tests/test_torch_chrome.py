@@ -20,6 +20,7 @@ from chromegcn_tpu_torch.data.synthetic import make_hic_edges
 from chromegcn_tpu_torch.models.chrome import ChromeGCN, make_chrome_model
 from chromegcn_tpu_torch.models.norm import MaskedBatchNorm
 from chromegcn_tpu_torch.ops import sparse as tsp
+from chromegcn_tpu_torch.ops.bce_fused import bce_grad_plain
 from chromegcn_tpu_torch.ops.spmm_bsr import attach_bsr
 from chromegcn_tpu_torch.train import optim
 from chromegcn_tpu_torch.train.loss import bce_with_logits
@@ -191,6 +192,58 @@ def test_bce_with_logits_matches_jax():
                                None if m is None else torch.from_numpy(m))
         ref = jax_bce(jnp.asarray(logits), jnp.asarray(targets), None if m is None else jnp.asarray(m))
         np.testing.assert_allclose(float(ours), float(ref), rtol=1e-6)
+
+
+@pytest.mark.parametrize("cotangent", [1.0, -2.5])
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "mask"])
+def test_bce_closed_form_gradient_matches_jax(masked, cotangent):
+    """The gradient the card's kernel computes, g m (sigmoid(x) - z) with g
+    the mean's cotangent over (count L), written once as
+    ``bce_grad_plain``, is JAX's ``jax.grad`` of the mean loss, and the
+    torch formula's autograd (no logit is exactly 0, where the two differ)."""
+    rng = np.random.default_rng(6)
+    logits = (rng.normal(size=(50, 9)) * 5).astype(np.float32)
+    targets = (rng.random((50, 9)) < 0.3).astype(np.float32)
+    mask = rng.random(50) < 0.8 if masked else np.ones(50, bool)
+    ref = jax.grad(lambda x: cotangent * jax_bce(x, jnp.asarray(targets),
+                                                 jnp.asarray(mask) if masked else None))(
+        jnp.asarray(logits))
+    x, z = torch.from_numpy(logits), torch.from_numpy(targets)
+    m = torch.from_numpy(mask.astype(np.float32))
+    g = torch.tensor(cotangent / (mask.sum() * logits.shape[1]), dtype=torch.float32)
+    closed = bce_grad_plain(x, z, m, g)
+    np.testing.assert_allclose(closed.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-8)
+    xg = x.clone().requires_grad_(True)
+    (cotangent * bce_with_logits(xg, z, torch.from_numpy(mask) if masked else None)).backward()
+    np.testing.assert_allclose(xg.grad.numpy(), closed.numpy(), rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bce_with_logits_takes_the_torch_formula_on_the_cpu(dtype):
+    """On the CPU, in f32 and float64, the loss and its gradient are the
+    torch formula's as it stood before the card's kernels, bit for bit, and
+    no kernel is launched."""
+    from chromegcn_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(7)
+    logits = torch.from_numpy(rng.normal(size=(64, 919)) * 4).to(dtype)
+    targets = torch.from_numpy(rng.random((64, 919)) < 0.05)
+    mask = torch.from_numpy(rng.random(64) < 0.75)
+
+    def before(x):
+        z = targets.to(x.dtype)
+        per_elem = x.clamp(min=0.0) - x * z + torch.log1p(torch.exp(-x.abs()))
+        m = mask.to(x.dtype)[:, None]
+        return (per_elem * m).sum() / (m.sum() * per_elem.shape[1]).clamp(min=1.0)
+
+    launches = dict(_build.LAUNCHES)
+    x, x_before = logits.clone().requires_grad_(True), logits.clone().requires_grad_(True)
+    loss, loss_before = bce_with_logits(x, targets, mask), before(x_before)
+    loss.backward()
+    loss_before.backward()
+    assert loss.dtype == dtype and torch.equal(loss, loss_before)
+    assert torch.equal(x.grad, x_before.grad)
+    assert dict(_build.LAUNCHES) == launches
 
 
 @pytest.mark.parametrize("name", ["sgd", "adam"])
